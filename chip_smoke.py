@@ -57,7 +57,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py:15
 KERNEL_VS_PLAIN_ERR = 1.25
 AGREE_VS_PLAIN_ERR = 2.0
 
-SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "deepseek-7b", 4, 1024, 32
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = (
+    serve.FULL_ARCH, serve.FULL_BATCH, serve.FULL_PROMPT, serve.FULL_GEN)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,12 +205,9 @@ def phase_small() -> None:
     config): the one-call prefill through K1 against token-by-token decode
     on the plain path, over the same cache rows."""
     cfg = configs.get_smoke(SERVE_ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    model = Model(cfg, RunConfig(remat=False), dtype=torch.float32,
-                  device="cuda").init(gen)
     B, S = 2, 40
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                           device="cuda")
+    model, tokens = serve.setup(cfg, B, S, "cuda", dtype=torch.float32,
+                                seed=1)
     with torch.inference_mode():
         one_call, _ = model.decode_step(model.init_cache(B, S), tokens, 0)
         model.run = dataclasses.replace(model.run, attn_impl="plain")
@@ -232,12 +230,7 @@ def last_prefill_logits(model: Model, prompts) -> torch.Tensor:
 def phase_serve() -> dict:
     cfg = configs.get(SERVE_ARCH)
     t0 = time.perf_counter()
-    model = Model(cfg, RunConfig(remat=False), dtype=torch.bfloat16,
-                  device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    model.init(gen)
-    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=gen, device="cuda")
+    model, prompts = serve.setup(cfg, SERVE_BATCH, SERVE_PROMPT, "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -288,7 +281,7 @@ def phase_serve() -> dict:
         model.run = dataclasses.replace(model.run, attn_impl="plain")
         plain_last = last_prefill_logits(model, prompts)
         # fp32 reference on the same (bf16-valued) weights, plain path
-        ref = Model(cfg, RunConfig(remat=False, attn_impl="plain"),
+        ref = Model(cfg, RunConfig(attn_impl="plain"),
                     dtype=torch.float32, device="cuda")
         for p_ref, p in zip(ref.parameters(), model.parameters()):
             p_ref.copy_(p)

@@ -1,31 +1,30 @@
-"""Where a serving run's device time goes: torch.profiler over one prefill
-and a few decode steps, with the device's busy share of each phase.
+"""Where a full-width serving run's device time goes: torch.profiler over
+one prefill and a few decode steps of the run chip_smoke.py drives
+(``serve.FULL_*``: deepseek-7b, 4 prompts of 1024, bf16, random weights
+from seed 0).
 
-    python -m repro_torch.launch.profile_serve     # deepseek-7b, full width, B 4 x 1024
-    python -m repro_torch.launch.profile_serve --smoke --device cpu
+    python -m repro_torch.launch.profile_serve
 
-Prints, per phase, the host wall time, the summed device time of its
-kernels, their ratio (busy share; 1 - busy is the idle share) and the top
-operators by device time.  Needs a CUDA device for device times.
+Each phase runs twice on the same cache: first without the profiler, for
+its wall time, then under it, for the device time of its kernels.  The
+profiler's own host work slows eager dispatch, so the wall time under it
+would understate how busy the device is.  Prints, per phase, both wall
+times, the summed kernel time, the busy share (kernel time over the
+unprofiled wall time; 1 - busy is the idle share) and the top operators by
+device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
-import argparse
 import time
-from typing import Optional
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs
-from repro_torch import device as _device
-from repro_torch.configs.base import RunConfig
 from repro_torch.launch import serve
-from repro_torch.models import Model
 
-# the serving shape chip_smoke.py drives
-ARCH, BATCH, PROMPT, DECODE_STEPS = "deepseek-7b", 4, 1024, 4
+DECODE_STEPS = 8
 ROWS = 16           # operators listed per phase
 
 
@@ -36,53 +35,42 @@ def _device_us(prof) -> float:
                if e.device_type == DeviceType.CUDA)
 
 
-def _report(name: str, prof, wall_s: float, rows: int) -> None:
+def _timed(fn):
+    """(wall seconds of fn up to the end of its device work, fn's result)"""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _phase(name: str, fn):
+    wall, _ = _timed(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall, out = _timed(fn)
     dev_ms = _device_us(prof) / 1e3
-    print(f"[{name}] wall {1e3 * wall_s:.3f} ms, device kernels "
-          f"{dev_ms:.3f} ms, busy share {dev_ms / (1e3 * wall_s):.4f}")
+    print(f"[{name}] wall {1e3 * wall:.3f} ms ({1e3 * prof_wall:.3f} ms "
+          f"under the profiler), device kernels {dev_ms:.3f} ms, busy share "
+          f"{dev_ms / (1e3 * wall):.4f}")
     print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=rows, max_name_column_width=60))
+                                    row_limit=ROWS, max_name_column_width=60))
+    return out
 
 
-def main(argv: Optional[list[str]] = None) -> None:
-    p = argparse.ArgumentParser()
-    p.add_argument("--smoke", action="store_true",
-                   help="the smoke config instead of the full-width one")
-    p.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = p.parse_args(argv)
-
-    dev = _device.resolve(args.device)
-    cfg = (configs.get_smoke(ARCH) if args.smoke else configs.get(ARCH))
-    model = Model(cfg, RunConfig(remat=False), device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    model.init(g)
-    B, P = BATCH, PROMPT
-    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
-                            device=dev)
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_serve measures the card's device time; "
+                           "no CUDA device is available")
+    B, P = serve.FULL_BATCH, serve.FULL_PROMPT
+    model, prompts = serve.setup(configs.get(serve.FULL_ARCH), B, P, "cuda")
     with torch.inference_mode():
         serve.generate(model, prompts[:, :64], 2)            # warm-up
         cache = model.init_cache(B, P + DECODE_STEPS + 1)
-        sync()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            tok, _, cache = serve.prefill(model, cache, prompts)
-            sync()
-            wall = time.perf_counter() - t0
-        _report("prefill", prof, wall, ROWS)
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            serve.decode(model, cache, tok, P, DECODE_STEPS)
-            sync()
-            wall = time.perf_counter() - t0
-        _report(f"decode x{DECODE_STEPS}", prof, wall, ROWS)
+        tok, _, cache = _phase("prefill",
+                               lambda: serve.prefill(model, cache, prompts))
+        _phase(f"decode x{DECODE_STEPS}",
+               lambda: serve.decode(model, cache, tok, P, DECODE_STEPS))
 
 
 if __name__ == "__main__":

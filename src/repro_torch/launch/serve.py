@@ -17,8 +17,23 @@ import torch
 
 from repro_torch import configs
 from repro_torch import device as _device
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import ArchConfig
 from repro_torch.models import Model
+
+# the full-width serving run that chip_smoke.py and profile_serve.py drive
+FULL_ARCH, FULL_BATCH, FULL_PROMPT, FULL_GEN = "deepseek-7b", 4, 1024, 32
+
+
+def setup(cfg: ArchConfig, batch: int, prompt_len: int, device=None,
+          dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+    """A model with random weights and random prompts [batch, prompt_len],
+    both drawn from one generator seeded with ``seed``."""
+    model = Model(cfg, dtype=dtype, device=device)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    model.init(g)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=g, device=model.device)
+    return model, prompts
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -77,11 +92,7 @@ def main(argv: Optional[list[str]] = None) -> torch.Tensor:
 
     dev = _device.resolve(args.device)
     cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
-    model = Model(cfg, RunConfig(remat=False), device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    model.init(g)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=g, device=dev)
+    model, prompts = setup(cfg, args.batch, args.prompt_len, dev)
     with torch.inference_mode():
         out = generate(model, prompts, args.gen)
     print(f"served {args.batch} requests, generated {out.shape[1]} tokens "

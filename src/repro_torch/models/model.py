@@ -110,6 +110,17 @@ def _check_supported(cfg: ArchConfig, segments: list[Segment]) -> None:
                     "Queue 1, MoE)")
 
 
+def _check_run(run: RunConfig) -> None:
+    """The port reads only ``attn_impl`` so far.  Any other field set away
+    from its default would be ignored without a word, so it raises."""
+    unread = [f.name for f in dataclasses.fields(run)
+              if f.name != "attn_impl" and getattr(run, f.name) != f.default]
+    if unread:
+        raise NotImplementedError(
+            f"RunConfig fields {unread} are not implemented by the port yet "
+            "(ROADMAP Queue 1: the training slice, multi-GPU sync)")
+
+
 # ----------------------------------------------------------------------
 # parameters
 # ----------------------------------------------------------------------
@@ -173,6 +184,7 @@ class Model(nn.Module):
         self.dtype = dtype
         self.segments_spec = derive_segments(cfg)
         _check_supported(cfg, self.segments_spec)
+        _check_run(run)
         dev = _device.resolve(device)
         d, V = cfg.d_model, cfg.vocab_size
 

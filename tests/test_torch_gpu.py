@@ -65,7 +65,7 @@ def test_kernel_refuses_grad(cuda):
 
 def test_serving_prefill_runs_k1_once_per_layer(cuda):
     cfg = configs.get_smoke("chatglm3-6b")
-    model = Model(cfg, RunConfig(remat=False), dtype=torch.float32,
+    model = Model(cfg, dtype=torch.float32,
                   device=cuda).init(torch.Generator(cuda).manual_seed(0))
     prompts = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
     with torch.inference_mode():
@@ -75,7 +75,7 @@ def test_serving_prefill_runs_k1_once_per_layer(cuda):
         assert ops.flash_attention.launches == before + cfg.n_layers
         serve.decode(model, cache, tok, 40, 4)
         assert ops.flash_attention.launches == before + cfg.n_layers
-        plain = Model(cfg, RunConfig(remat=False, attn_impl="plain"),
+        plain = Model(cfg, RunConfig(attn_impl="plain"),
                       dtype=torch.float32, device=cuda)
         plain.load_state_dict(model.state_dict())
         _, want, _ = serve.prefill(plain, plain.init_cache(2, 48), prompts)

@@ -4,6 +4,8 @@ Both sides run the same parameters: JAX's ``Model.init`` draws them, the
 JAX checkpoint writer saves them, and the port loads them through its
 bridge (``jax.random`` numbers cannot be drawn in PyTorch).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,8 +39,7 @@ def _pair(arch, dtype, tmp_path, impl="kernel"):
                 dtype=jd)
     params = jm.init(jax.random.PRNGKey(3))
     step_dir = ckpt.save(str(tmp_path), 0, params)
-    tm = TModel(tconfigs.get_smoke(arch), TRunConfig(remat=False,
-                                                      attn_impl=impl),
+    tm = TModel(tconfigs.get_smoke(arch), TRunConfig(attn_impl=impl),
                 dtype=td, device="cpu")
     bridge.from_flat(bridge.load_npz(step_dir), tm)
     return jm, params, tm
@@ -225,3 +226,13 @@ def test_model_without_device_raises_when_cuda_is_absent():
 def test_unported_blocks_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         TModel(tconfigs.get_smoke(arch), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("remat", False), ("microbatches", 4), ("logits_fp32", False),
+    ("fsdp", True), ("sync_mode", "bucketed"), ("ssm_chunk", 64),
+])
+def test_unimplemented_run_options_raise(field, value):
+    run = dataclasses.replace(TRunConfig(), **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        TModel(tconfigs.get_smoke("deepseek-7b"), run, device="cpu")
