@@ -5,13 +5,13 @@ from seed 0).
 
     python -m repro_torch.launch.profile_serve
 
-Each phase runs twice on the same cache: first without the profiler, for
-its wall time, then under it, for the device time of its kernels.  The
-profiler's own host work slows eager dispatch, so the wall time under it
-would understate how busy the device is.  Prints, per phase, both wall
-times, the summed kernel time, the busy share (kernel time over the
-unprofiled wall time; 1 - busy is the idle share) and the top operators by
-device time.  Needs a CUDA device.
+Each phase runs on the same cache first without the profiler, for its
+wall time (the least of ``WALL_RUNS`` runs), then under it, for the device
+time of its kernels.  The profiler's own host work slows eager dispatch,
+so the wall time under it would understate how busy the device is.
+Prints, per phase, both wall times, the summed kernel time, the busy
+share (kernel time over the unprofiled wall time; 1 - busy is the idle
+share) and the top operators by device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from repro_torch import configs
 from repro_torch.launch import serve
 
 DECODE_STEPS = 8
+WALL_RUNS = 3
 ROWS = 16           # operators listed per phase
 
 
@@ -45,7 +46,7 @@ def _timed(fn):
 
 
 def _phase(name: str, fn):
-    wall, _ = _timed(fn)
+    wall = min(_timed(fn)[0] for _ in range(WALL_RUNS))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_wall, out = _timed(fn)
