@@ -5,10 +5,11 @@ from seed 0).
 
     python -m repro_torch.launch.profile_serve
 
-Each phase runs on the same cache first without the profiler, for its
-wall time (the least of ``WALL_RUNS`` runs), then under it, for the device
-time of its kernels.  The profiler's own host work slows eager dispatch,
-so the wall time under it would understate how busy the device is.
+Each phase runs on the same cache, first without the profiler, for its
+wall time (the least of ``WALL_RUNS`` runs), and later under it, for the
+device time of its kernels; all unprofiled runs come first.  The
+profiler's own host work slows eager dispatch, so the wall time under it
+would understate how busy the device is.
 Prints, per phase, both wall times, the summed kernel time, the busy
 share (kernel time over the unprofiled wall time; 1 - busy is the idle
 share) and the top operators by device time.  Needs a CUDA device.
@@ -36,27 +37,13 @@ def _device_us(prof) -> float:
                if e.device_type == DeviceType.CUDA)
 
 
-def _timed(fn):
-    """(wall seconds of fn up to the end of its device work, fn's result)"""
+def _timed(fn) -> float:
+    """Wall seconds of fn up to the end of its device work."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = fn()
+    fn()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, out
-
-
-def _phase(name: str, fn):
-    wall = min(_timed(fn)[0] for _ in range(WALL_RUNS))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_wall, out = _timed(fn)
-    dev_ms = _device_us(prof) / 1e3
-    print(f"[{name}] wall {1e3 * wall:.3f} ms ({1e3 * prof_wall:.3f} ms "
-          f"under the profiler), device kernels {dev_ms:.3f} ms, busy share "
-          f"{dev_ms / (1e3 * wall):.4f}")
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=ROWS, max_name_column_width=60))
-    return out
+    return time.perf_counter() - t0
 
 
 def main() -> None:
@@ -68,10 +55,28 @@ def main() -> None:
     with torch.inference_mode():
         serve.generate(model, prompts[:, :64], 2)            # warm-up
         cache = model.init_cache(B, P + DECODE_STEPS + 1)
-        tok, _, cache = _phase("prefill",
-                               lambda: serve.prefill(model, cache, prompts))
-        _phase(f"decode x{DECODE_STEPS}",
-               lambda: serve.decode(model, cache, tok, P, DECODE_STEPS))
+        tok = serve.prefill(model, cache, prompts)[0]
+        phases = {
+            "prefill": lambda: serve.prefill(model, cache, prompts),
+            f"decode x{DECODE_STEPS}":
+                lambda: serve.decode(model, cache, tok, P, DECODE_STEPS),
+        }
+        # every unprofiled run comes before the first profiled one, so that
+        # no wall time is taken after the profiler has been started
+        walls = {name: min(_timed(fn) for _ in range(WALL_RUNS))
+                 for name, fn in phases.items()}
+        for name, fn in phases.items():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                prof_wall = _timed(fn)
+            dev_ms = _device_us(prof) / 1e3
+            print(f"[{name}] wall {1e3 * walls[name]:.3f} ms "
+                  f"({1e3 * prof_wall:.3f} ms under the profiler), device "
+                  f"kernels {dev_ms:.3f} ms, busy share "
+                  f"{dev_ms / (1e3 * walls[name]):.4f}")
+            print(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=ROWS,
+                max_name_column_width=60))
 
 
 if __name__ == "__main__":
