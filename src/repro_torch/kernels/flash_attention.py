@@ -2,81 +2,35 @@
 
 The source is ``csrc/flash_attention.cu``; its header says which TPU kernel
 it replaces, what bounds it on the card and how it is laid out.  This
-module builds it with ``nvcc`` at first use into ``_build/<hash>/`` beside
-this file (keyed by a hash of the source and flags, so an edit rebuilds),
-loads it with ``ctypes`` and launches it on PyTorch's current stream.
-Nothing here runs at import time: the CPU tests import this module on
-machines with no compiler and no card.
+module builds it at first use through ``repro_torch.kernels.nvcc`` (into
+its own hash-keyed directory), binds it with ``ctypes`` and launches it on
+PyTorch's current stream.  Nothing here runs at import time: the CPU tests
+import this module on machines with no compiler and no card.
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import nvcc as _nvcc
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
 
-@dataclasses.dataclass(frozen=True)
-class Build:
-    path: Path
-    seconds: float      # nvcc wall time; 0.0 when the library was on disk
-    log: str            # nvcc's output: ptxas registers, shared memory, spills
-
-
-def nvcc() -> str:
-    """Path of the CUDA compiler: on PATH, else under CUDA_HOME."""
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    if not (home / "bin" / "nvcc").exists():
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                           "flash-attention kernel is built from source")
-    return str(home / "bin" / "nvcc")
-
-
-@functools.cache
-def build() -> Build:
+def build() -> _nvcc.Build:
     """Compile the kernel library once per process (and once per source)."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / key / "libflash_attention.so"
-    if out.exists():
-        return Build(out, 0.0, "")
-    compiler = nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [compiler, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)    # atomic: concurrent builders never see half a file
-    return Build(out, seconds, proc.stdout + proc.stderr)
+    return _nvcc.build(SOURCE)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
+    lib = _nvcc.load(SOURCE)
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong] * 12

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -42,3 +43,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                init_state: Optional[torch.Tensor] = None):
+    """The chunked SSD scan with its intra-chunk term on K2.
+
+    xh: [B,L,H,P], dt: [B,L,H] (post-softplus, fp32), A: [H] (negative,
+    fp32), Bm/Cm: [B,L,G,N] with H % G == 0; init_state: [B,H,P,N] or None
+    for zeros.  Returns (y [B,L,H,P] in xh's dtype, final state [B,H,P,N]
+    fp32).  L must be a multiple of ``chunk``.  The inter-chunk recurrence
+    and its correction are linear and cheap, and stay plain PyTorch.
+    Forward only: a CUDA input that requires grad raises.
+    """
+    Bsz, L, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if chunk <= 0 or L % chunk:
+        raise ValueError(f"sequence length {L} is not a multiple of the "
+                         f"chunk {chunk}")
+    nc = L // chunk
+    if xh.device.type == "cpu":
+        y_intra, states, cum = _ref.ssd_intra_chunk_ref(
+            *_ref.to_chunks(xh, dt, A, Bm, Cm, chunk))
+    elif xh.device.type == "cuda":
+        if any(t.requires_grad for t in (xh, dt, A, Bm, Cm)):
+            raise NotImplementedError(
+                "ssd_chunked has no backward on CUDA yet (ROADMAP Queue 1, "
+                "training slice); call it under torch.inference_mode()")
+        y_intra, states, cum = _ssd.ssd_intra_chunk_fwd(xh, dt, A, Bm, Cm,
+                                                        chunk)
+        ssd_chunked.launches += 1
+    else:
+        raise ValueError(f"ssd_chunked runs on cpu or cuda, not {xh.device}")
+
+    states = states.reshape(Bsz, H, nc, N, P)
+    cum = cum.reshape(Bsz, H, nc, chunk)
+    chunk_decay = torch.exp(cum[..., -1])                   # [B,H,nc]
+    s = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xh.device)
+         if init_state is None else init_state.float())
+    prev = []                                               # state entering c
+    for c in range(nc):
+        prev.append(s)
+        s = s * chunk_decay[..., c, None, None] + states[:, :, c].transpose(
+            -1, -2)
+    prev = torch.stack(prev, dim=2)                         # [B,H,nc,P,N]
+
+    # y_inter[b,c,q,h] = exp(cum) · (C of h's group) · prev[b,h,c]; the
+    # group's C is contracted once per head group, not repeated per head
+    hpg = H // G
+    Cc = Cm.reshape(Bsz, nc, chunk, G, N).float()
+    y_inter = torch.einsum("bcqgn,bgjcpn->bcqgjp", Cc,
+                           prev.reshape(Bsz, G, hpg, nc, P, N))
+    decay_from_start = torch.exp(cum).permute(0, 2, 3, 1)   # [B,nc,Q,H]
+    y_inter = y_inter.reshape(Bsz, nc, chunk, H, P) \
+        * decay_from_start[..., None]
+    y_intra = y_intra.reshape(Bsz, H, nc, chunk, P).permute(0, 2, 3, 1, 4)
+    y = (y_intra + y_inter).reshape(Bsz, L, H, P)
+    return y.to(xh.dtype), s
+
+
+ssd_chunked.launches = 0

@@ -1,9 +1,10 @@
 """Where a full-width serving run's device time goes: torch.profiler over
-one prefill and a few decode steps of the run chip_smoke.py drives
-(``serve.FULL_*``: deepseek-7b, 4 prompts of 1024, bf16, random weights
-from seed 0).
+one prefill and a few decode steps of a run chip_smoke.py drives
+(``serve.FULL_*``: deepseek-7b, 4 prompts of 1024; ``serve.SSM_*``:
+mamba2-130m, 8 prompts of 4096; bf16, random weights from seed 0).
 
-    python -m repro_torch.launch.profile_serve
+    python -m repro_torch.launch.profile_serve                      # deepseek-7b
+    python -m repro_torch.launch.profile_serve --arch mamba2-130m
 
 Each phase runs on the same cache, first without the profiler, for its
 wall time (the least of ``WALL_RUNS`` runs), and later under it, for the
@@ -16,7 +17,9 @@ share) and the top operators by device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import time
+from typing import Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -28,6 +31,8 @@ from repro_torch.launch import serve
 DECODE_STEPS = 8
 WALL_RUNS = 3
 ROWS = 16           # operators listed per phase
+RUNS = {serve.FULL_ARCH: (serve.FULL_BATCH, serve.FULL_PROMPT),
+        serve.SSM_ARCH: (serve.SSM_BATCH, serve.SSM_PROMPT)}
 
 
 def _device_us(prof) -> float:
@@ -46,12 +51,18 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def main() -> None:
+def main(argv: Optional[list[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=serve.FULL_ARCH, choices=sorted(RUNS))
+    arch = ap.parse_args(argv).arch
     if not torch.cuda.is_available():
         raise RuntimeError("profile_serve measures the card's device time; "
                            "no CUDA device is available")
-    B, P = serve.FULL_BATCH, serve.FULL_PROMPT
-    model, prompts = serve.setup(configs.get(serve.FULL_ARCH), B, P, "cuda")
+    B, P = RUNS[arch]
+    model, prompts = serve.setup(configs.get(arch), B, P, "cuda")
+    # each prefill below runs on the cache the last one left: attention
+    # rewrites rows 0..P, an SSM block starts from the state left there,
+    # at the same cost
     with torch.inference_mode():
         serve.generate(model, prompts[:, :64], 2)            # warm-up
         cache = model.init_cache(B, P + DECODE_STEPS + 1)

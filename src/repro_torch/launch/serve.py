@@ -1,12 +1,14 @@
 """Serving: one-call prefill + batched greedy decode.
 
 The prompt is prefilled with ONE ``decode_step`` over ``[B, prompt_len]``
-at cache index 0, which the "kernel" attention path runs through the
-flash-attention kernel K1 (where the JAX demo prefills token by token);
-then tokens are decoded one at a time on the plain masked path.
+at cache index 0 (where the JAX demo prefills token by token): attention
+blocks run it through the flash-attention kernel K1 on the "kernel" path,
+Mamba2 blocks through the chunked SSD scan on K2.  Then tokens are decoded
+one at a time: attention on the plain masked path, Mamba2 on the
+single-step recurrence.
 
     python -m repro_torch.launch.serve --device cpu          # smoke config
-    python -m repro_torch.launch.serve --full --prompt-len 1024   # on the card
+    python -m repro_torch.launch.serve --full --prompt-len 4096   # on the card
 """
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import Model
 
-# the full-width serving run that chip_smoke.py and profile_serve.py drive
+# the full-width serving runs that chip_smoke.py (both) and profile_serve.py
+# (the first) drive
 FULL_ARCH, FULL_BATCH, FULL_PROMPT, FULL_GEN = "deepseek-7b", 4, 1024, 32
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = "mamba2-130m", 8, 4096, 32
 
 
 def setup(cfg: ArchConfig, batch: int, prompt_len: int, device=None,
@@ -80,7 +84,7 @@ def generate(model: Model, prompts: torch.Tensor, gen: int) -> torch.Tensor:
 
 def main(argv: Optional[list[str]] = None) -> torch.Tensor:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="deepseek-7b")
+    p.add_argument("--arch", default="mamba2-130m")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--gen", type=int, default=32)
@@ -95,8 +99,8 @@ def main(argv: Optional[list[str]] = None) -> torch.Tensor:
     model, prompts = setup(cfg, args.batch, args.prompt_len, dev)
     with torch.inference_mode():
         out = generate(model, prompts, args.gen)
-    print(f"served {args.batch} requests, generated {out.shape[1]} tokens "
-          f"each on {dev}")
+    print(f"served {args.batch} requests of {cfg.name}, generated "
+          f"{out.shape[1]} tokens each on {dev}")
     print("sample:", out[0, :16].tolist())
     return out
 

@@ -5,10 +5,10 @@ pattern.  Each segment's parameters are stacked on a leading repeat axis,
 as in the JAX package, so parameters map one to one; the port loops over
 the repeats where the JAX package scans.
 
-This slice of the port runs attention + dense-FFN blocks (the dense GQA
-families: deepseek-7b, chatglm3, deepseek-coder, nemotron, internvl2's
-language model).  Other blocks raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The port runs attention + dense-FFN blocks (the dense GQA families:
+deepseek-7b, chatglm3, deepseek-coder, nemotron, internvl2's language
+model) and Mamba2 blocks (mamba2-130m).  Other blocks raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 The Model exposes:
 - ``init(generator)``               → fills the parameters, returns self
@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     dense_init, embed_init, mlp, mlp_init, mlp_shapes, rmsnorm,
 )
@@ -100,10 +101,6 @@ def _check_supported(cfg: ArchConfig, segments: list[Segment]) -> None:
             "MLA and MTP)")
     for seg in segments:
         for spec in seg.pattern:
-            if spec.mixer != "attn":
-                raise NotImplementedError(
-                    f"{cfg.name}: {spec.mixer} blocks are not ported yet "
-                    "(ROADMAP Queue 1, SSM)")
             if spec.ffn == "moe":
                 raise NotImplementedError(
                     f"{cfg.name}: MoE blocks are not ported yet (ROADMAP "
@@ -111,10 +108,12 @@ def _check_supported(cfg: ArchConfig, segments: list[Segment]) -> None:
 
 
 def _check_run(run: RunConfig) -> None:
-    """The port reads only ``attn_impl`` so far.  Any other field set away
-    from its default would be ignored without a word, so it raises."""
+    """The port reads only ``attn_impl`` and ``ssm_chunk`` so far.  Any
+    other field set away from its default would be ignored without a word,
+    so it raises."""
     unread = [f.name for f in dataclasses.fields(run)
-              if f.name != "attn_impl" and getattr(run, f.name) != f.default]
+              if f.name not in ("attn_impl", "ssm_chunk")
+              and getattr(run, f.name) != f.default]
     if unread:
         raise NotImplementedError(
             f"RunConfig fields {unread} are not implemented by the port yet "
@@ -135,7 +134,7 @@ class _Block(nn.Module):
         super().__init__()
         self.cfg = cfg
 
-        def empty(*shape):
+        def empty(*shape, dtype=dtype):
             return nn.Parameter(torch.empty((repeats,) + shape, dtype=dtype,
                                             device=device))
 
@@ -144,7 +143,13 @@ class _Block(nn.Module):
                                      for name, (shape, _) in shapes.items()})
 
         self.ln1 = empty(cfg.d_model)
-        self.attn = stacked(attn.gqa_shapes(cfg))
+        if spec.mixer == "attn":
+            self.attn = stacked(attn.gqa_shapes(cfg))
+        else:
+            self.ssm = nn.ParameterDict({
+                name: empty(*shape, dtype=torch.float32
+                            if name in ssm.FP32_PARAMS else dtype)
+                for name, shape in ssm.ssm_shapes(cfg).items()})
         if spec.ffn == "dense":
             self.ln2 = empty(cfg.d_model)
             self.mlp = stacked(mlp_shapes(cfg.d_model, cfg.d_ff,
@@ -154,9 +159,13 @@ class _Block(nn.Module):
         """Draw repeat r's parameters as the JAX block init does."""
         cfg, p = self.cfg, self.ln1
         self.ln1[r].fill_(1.0)
-        for name, w in attn.gqa_init(generator, cfg, dtype=p.dtype,
-                                     device=p.device).items():
-            self.attn[name][r].copy_(w)
+        if hasattr(self, "attn"):
+            mixer, init = self.attn, attn.gqa_init
+        else:
+            mixer, init = self.ssm, ssm.ssm_init
+        for name, w in init(generator, cfg, dtype=p.dtype,
+                            device=p.device).items():
+            mixer[name][r].copy_(w)
         if hasattr(self, "mlp"):
             self.ln2[r].fill_(1.0)
             for name, w in mlp_init(generator, cfg.d_model, cfg.d_ff,
@@ -233,10 +242,16 @@ class Model(nn.Module):
                      positions=None, cache=None, cache_index=None):
         cfg, run = self.cfg, self.run
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
-        c = cache.get("attn") if cache else None
-        out, nc = attn.gqa_apply(bp["attn"], h, cfg, positions=positions,
-                                 cache=c, cache_index=cache_index,
-                                 causal=spec.causal, impl=run.attn_impl)
+        if spec.mixer == "attn":
+            out, _ = attn.gqa_apply(
+                bp["attn"], h, cfg, positions=positions,
+                cache=cache.get("attn") if cache else None,
+                cache_index=cache_index, causal=spec.causal,
+                impl=run.attn_impl)
+        else:
+            out, _ = ssm.ssm_apply(bp["ssm"], h, cfg,
+                                   cache=cache.get("ssm") if cache else None,
+                                   chunk=run.ssm_chunk or None)
         x = x + out
         if spec.ffn == "dense":
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
@@ -286,15 +301,21 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> list:
         """caches[segment][pattern position] = {"attn": {"k", "v"}}, each
-        [R, B, max_len, K, hd] in the model dtype."""
+        [R, B, max_len, K, hd] in the model dtype, or {"ssm": {"conv",
+        "state"}}: [R, B, W-1, conv_dim] in the model dtype and [R, B, H,
+        P, N] in fp32 (an SSM cache does not grow with max_len)."""
         caches = []
+        kw = dict(dtype=self.dtype, device=self.device)
         for seg in self.segments_spec:
             seg_caches = []
-            for _ in seg.pattern:
-                one = attn.gqa_cache_init(self.cfg, batch_size, max_len,
-                                          dtype=self.dtype,
-                                          device=self.device)
-                seg_caches.append({"attn": {
+            for spec in seg.pattern:
+                if spec.mixer == "attn":
+                    name, one = "attn", attn.gqa_cache_init(
+                        self.cfg, batch_size, max_len, **kw)
+                else:
+                    name, one = "ssm", ssm.ssm_cache_init(
+                        self.cfg, batch_size, **kw)
+                seg_caches.append({name: {
                     k: torch.zeros((seg.repeats,) + v.shape, dtype=v.dtype,
                                    device=v.device)
                     for k, v in one.items()}})
@@ -305,7 +326,10 @@ class Model(nn.Module):
         """tokens: [B,S] written at cache rows index..index+S (a Python int).
 
         S is 1 for a decode step; at index 0 a whole prompt prefills in one
-        call, which the "kernel" attention path runs through K1."""
+        call.  Attention blocks run it through K1 on the "kernel" path; SSM
+        blocks run the chunked scan through K2 from the cache's state (S a
+        multiple of the chunk, or shorter than it) and leave the final
+        state and conv tail in the cache, for any index."""
         x = self.embed[tokens].to(self.dtype)
         x = self._run_segments(x, caches=caches, cache_index=index)
         return self._head(x), caches

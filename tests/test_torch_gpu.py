@@ -1,5 +1,5 @@
-"""The port on the card: K1 built from source and held against its plain
-version, and the serving path counting its launches.
+"""The port on the card: K1 and K2 built from source and held against their
+plain versions, and the serving paths counting their launches.
 
 Run on a machine with a CUDA device (it imports no JAX):
 
@@ -14,11 +14,16 @@ import torch
 from repro_torch import configs
 from repro_torch.configs.base import RunConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.launch import serve
 from repro_torch.models import Model
 
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),   # tests/test_kernels.py:15
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# K2 against its plain version: tests/test_kernels.py:95 (fp32 1e-4: the
+# products are summed in another order, and y and the state reach ~1e2)
+SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 pytestmark = pytest.mark.gpu
 
@@ -80,3 +85,69 @@ def test_serving_prefill_runs_k1_once_per_layer(cuda):
         plain.load_state_dict(model.state_dict())
         _, want, _ = serve.prefill(plain, plain.init_cache(2, 48), prompts)
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+
+
+def ssd_inputs(B, L, H, G, P, N, dtype, device, a_scale=1.0, seed=0):
+    """x [B,L,H,P], dt [B,L,H], A [H], Bm/Cm [B,L,G,N] as the Mamba2 block
+    hands them to the kernel: x, B and C are strided views of one packed
+    tensor, dt = softplus(normal), A = -a_scale * linspace(1, 16, H)."""
+    rng = np.random.default_rng(seed)
+    packed = torch.from_numpy(rng.standard_normal(
+        (B, L, H * P + 2 * G * N), dtype=np.float32)).to(device, dtype)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, L, H), dtype=np.float32))).to(device)
+    A = -a_scale * torch.linspace(1.0, 16.0, H, device=device)
+    x = packed[..., :H * P].reshape(B, L, H, P)
+    Bm = packed[..., H * P:H * P + G * N].reshape(B, L, G, N)
+    Cm = packed[..., H * P + G * N:].reshape(B, L, G, N)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("B,L,H,G,P,N,chunk,dtype,a_scale", [
+    (2, 64, 8, 1, 16, 16, 8, torch.float32, 1.0),      # smoke shape: Q 8
+    (2, 64, 8, 1, 16, 16, 8, torch.bfloat16, 1.0),
+    (2, 120, 4, 2, 32, 16, 40, torch.float32, 0.01),   # G 2, ragged tiles
+    (1, 100, 4, 2, 64, 128, 100, torch.bfloat16, 0.01),  # Q = L < chunk
+    (8, 4096, 24, 1, 64, 128, 256, torch.bfloat16, 1.0),  # serving prefill
+    (1, 512, 24, 1, 64, 128, 256, torch.float32, 0.01),
+])
+def test_ssd_kernel_matches_plain(cuda, B, L, H, G, P, N, chunk, dtype,
+                                  a_scale):
+    x, dt, A, Bm, Cm = ssd_inputs(B, L, H, G, P, N, dtype, cuda, a_scale)
+    with torch.inference_mode():
+        got = ssd_kernel.ssd_intra_chunk_fwd(x, dt, A, Bm, Cm, chunk)
+        want = ref.ssd_intra_chunk_ref(*ref.to_chunks(x, dt, A, Bm, Cm,
+                                                      chunk))
+        torch.cuda.synchronize()
+    for name, g, w in zip(("y", "state", "cum"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        torch.testing.assert_close(g, w, **SSD_TOL[dtype], msg=name)
+
+
+def test_ssd_chunked_counts_launches_and_refuses_grad(cuda):
+    x, dt, A, Bm, Cm = ssd_inputs(1, 32, 4, 1, 16, 16, torch.float32, cuda)
+    before = ops.ssd_chunked.launches
+    with torch.inference_mode():
+        y, final = ops.ssd_chunked(x, dt, A, Bm, Cm, 8)
+        want_y, want_final = ref.ssd_sequential_ref(x, dt, A, Bm, Cm)
+    assert ops.ssd_chunked.launches == before + 1
+    torch.testing.assert_close(y, want_y, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(final, want_final, rtol=1e-3, atol=1e-3)
+    with pytest.raises(NotImplementedError):
+        ops.ssd_chunked(x.detach().clone().requires_grad_(), dt, A, Bm, Cm,
+                        8)
+
+
+def test_mamba2_serving_runs_k2_once_per_layer_in_prefill(cuda):
+    cfg = configs.get(serve.SSM_ARCH)
+    model, prompts = serve.setup(cfg, 2, 512, cuda)
+    with torch.inference_mode():
+        cache = model.init_cache(2, 516)
+        before = ops.ssd_chunked.launches
+        tok, logits, cache = serve.prefill(model, cache, prompts)
+        assert ops.ssd_chunked.launches == before + cfg.n_layers == \
+            before + 24
+        rest, _ = serve.decode(model, cache, tok, 512, 4)
+        assert ops.ssd_chunked.launches == before + cfg.n_layers
+    assert torch.isfinite(logits).all()
+    assert tuple(rest.shape) == (2, 4)

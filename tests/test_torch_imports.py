@@ -43,7 +43,9 @@ def test_port_modules_import_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    for mod in ("repro_torch.kernels.ops", "repro_torch.models.model",
+    for mod in ("repro_torch.kernels.ops", "repro_torch.kernels.ssd",
+                "repro_torch.kernels.nvcc", "repro_torch.models.ssm",
+                "repro_torch.models.model",
                 "repro_torch.launch.serve", "repro_torch.checkpoint.bridge",
                 "repro_torch.configs.deepseek_7b"):
         assert mod in out["mods"]

@@ -206,9 +206,10 @@ def test_serve_main_on_cpu(argv, capsys):
     args = dict(zip(argv[::2], argv[1::2]))
     B, gen = int(args.get("--batch", 4)), int(args.get("--gen", 32))
     assert tuple(out.shape) == (B, gen)
-    vocab = tconfigs.get_smoke(args.get("--arch", "deepseek-7b")).vocab_size
-    assert 0 <= int(out.min()) and int(out.max()) < vocab
-    assert f"served {B} requests" in capsys.readouterr().out
+    # the default arch is mamba2-130m, as in the JAX package's serve.main
+    cfg = tconfigs.get_smoke(args.get("--arch", "mamba2-130m"))
+    assert 0 <= int(out.min()) and int(out.max()) < cfg.vocab_size
+    assert f"served {B} requests of {cfg.name}" in capsys.readouterr().out
 
 
 def test_model_without_device_raises_when_cuda_is_absent():
@@ -219,7 +220,7 @@ def test_model_without_device_raises_when_cuda_is_absent():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("mamba2-130m", "SSM"), ("jamba-v0.1-52b", "SSM"),
+    ("jamba-v0.1-52b", "MoE"),
     ("olmoe-1b-7b", "MoE"), ("deepseek-v3-671b", "MLA"),
     ("whisper-large-v3", "whisper"),
 ])
@@ -230,9 +231,41 @@ def test_unported_blocks_name_their_roadmap_item(arch, item):
 
 @pytest.mark.parametrize("field,value", [
     ("remat", False), ("microbatches", 4), ("logits_fp32", False),
-    ("fsdp", True), ("sync_mode", "bucketed"), ("ssm_chunk", 64),
+    ("fsdp", True), ("sync_mode", "bucketed"),
 ])
 def test_unimplemented_run_options_raise(field, value):
     run = dataclasses.replace(TRunConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         TModel(tconfigs.get_smoke("deepseek-7b"), run, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_model_builds(dtype):
+    """SSM blocks are ported: mamba2-130m builds, with the JAX parameter
+    names, and serves a prompt on the CPU."""
+    cfg = tconfigs.get_smoke("mamba2-130m")
+    tm = TModel(cfg, dtype=dtype, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    names = {name for name, _ in tm.named_parameters()}
+    assert {f"segments.0.0.ssm.{k}" for k in (
+        "in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
+        "out_proj")} <= names
+    with torch.inference_mode():
+        out = tserve.generate(tm, torch.zeros((2, 8), dtype=torch.long), 3)
+    assert tuple(out.shape) == (2, 3)
+
+
+@pytest.mark.parametrize("ssm_chunk,ok", [(0, True), (4, True), (3, False)])
+def test_ssm_chunk_is_honoured(ssm_chunk, ok):
+    """RunConfig.ssm_chunk is read, not refused: it replaces the config's
+    chunk (8 at smoke size), and a chunk that does not divide the prompt
+    raises as the JAX scan asserts."""
+    tm = TModel(tconfigs.get_smoke("mamba2-130m"),
+                TRunConfig(ssm_chunk=ssm_chunk), dtype=torch.float32,
+                device="cpu").init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.zeros((1, 16), dtype=torch.long)}
+    if ok:
+        assert tuple(tm(batch).shape) == (1, 16, tm.cfg.vocab_size)
+    else:
+        with pytest.raises(ValueError, match="multiple of the chunk 3"):
+            tm(batch)
