@@ -138,6 +138,31 @@ def test_ssd_chunked_counts_launches_and_refuses_grad(cuda):
                         8)
 
 
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("B,L,H,G,P,N,chunk,dtype", [
+    (2, 64, 8, 1, 16, 16, 8, torch.float32),           # smoke shape: Q 8
+    (2, 120, 4, 2, 32, 16, 40, torch.bfloat16),        # G 2
+    (8, 4096, 24, 1, 64, 128, 256, torch.bfloat16),    # serving prefill
+])
+def test_ssd_chunked_matches_its_plain_route(cuda, B, L, H, G, P, N, chunk,
+                                             dtype, init):
+    """The wrapper as the main path calls it (K2, then the inter-chunk
+    recurrence), from a zero or a given state, against the same call on
+    CPU copies, which runs K2's plain version."""
+    x, dt, A, Bm, Cm = ssd_inputs(B, L, H, G, P, N, dtype, cuda)
+    s0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (B, H, P, N), dtype=np.float32)).to(cuda) if init else None
+    with torch.inference_mode():
+        y, final = ops.ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state=s0)
+        want_y, want_final = ops.ssd_chunked(
+            *(t.cpu() for t in (x, dt, A, Bm, Cm)), chunk,
+            init_state=None if s0 is None else s0.cpu())
+    assert y.dtype == dtype and final.dtype == torch.float32
+    torch.testing.assert_close(y.cpu(), want_y, **SSD_TOL[dtype])
+    torch.testing.assert_close(final.cpu(), want_final,
+                               **SSD_TOL[torch.float32])
+
+
 def test_mamba2_serving_runs_k2_once_per_layer_in_prefill(cuda):
     cfg = configs.get(serve.SSM_ARCH)
     model, prompts = serve.setup(cfg, 2, 512, cuda)

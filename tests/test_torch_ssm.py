@@ -255,6 +255,25 @@ def test_ssm_apply_one_call_prefill_matches_jax_token_by_token(L):
                                    **TOL["float32"], err_msg=name)
 
 
+def test_ssm_apply_prefill_from_a_carried_cache_matches_jax():
+    """The cached path with L > 1 from a cache that earlier tokens left
+    (a nonzero state and conv tail): the chunked scan starts from that
+    state, as JAX's L == 1 path continues token by token."""
+    jcfg, tcfg, jp, tp = _block("float32")
+    jx, tx = _x(jcfg, 2, 24, "float32")
+    _, jcache = _jax_token_by_token(
+        jp, jx[:, :8], jcfg, jssm.ssm_cache_init(jcfg, 2, dtype=jnp.float32))
+    cache = {k: torch.from_numpy(np.asarray(v, np.float32))
+             for k, v in jcache.items()}
+    assert float(cache["state"].abs().max()) > 0
+    want, jcache = _jax_token_by_token(jp, jx[:, 8:], jcfg, jcache)
+    got, _ = tssm.ssm_apply(tp, tx[:, 8:], tcfg, cache=cache)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+    for name in ("conv", "state"):
+        np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]),
+                                   **TOL["float32"], err_msg=name)
+
+
 def test_ssm_apply_decode_step_matches_jax():
     """The L == 1 path from a cache that a prompt left, in place."""
     jcfg, tcfg, jp, tp = _block("float32")
@@ -325,17 +344,6 @@ def test_forward_matches_jax(dtype, ssm_chunk, tmp_path):
     assert tuple(got.shape) == tuple(want.shape)
     np.testing.assert_allclose(_np(got), _np(want),
                                **_scaled(TOL, dtype, want))
-
-
-def test_ssm_chunk_is_honoured():
-    """The chunk the model uses is RunConfig's: a length that the smoke
-    config's chunk of 8 divides but a chunk of 3 does not is refused."""
-    tm = TModel(tconfigs.get_smoke(ARCH), TRunConfig(ssm_chunk=3),
-                dtype=torch.float32,
-                device="cpu").init(torch.Generator().manual_seed(0))
-    tokens = torch.from_numpy(_tokens(tm.cfg, 1, 8)).long()
-    with pytest.raises(ValueError, match="multiple of the chunk 3"):
-        tm({"tokens": tokens})
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
