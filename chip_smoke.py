@@ -6,8 +6,8 @@
 Phases (each raises on failure):
 1. box: the card's name and power limit, CUDA and nvcc versions, and the
    build of every hand-written kernel from the sources in this checkout
-   (K1 and K2, one nvcc each, started together), with ptxas's registers
-   and spills;
+   (K1, K2 and K3, one nvcc each, started together), with ptxas's
+   registers and spills;
 2. K1 (flash attention, CUDA) against its plain PyTorch version on the card
    at the serving prefill shape and at GQA, MQA, non-causal, small and
    unequal head-dim and fp32 shapes, and its time beside the plain version,
@@ -38,7 +38,30 @@ Phases (each raises on failure):
    single-step recurrence (0 launches); the last-position prefill logits
    are reported against an fp32 model on the same weights (bf16 serving
    is judged end to end at phase 6's 2 × 512, and K2's wrapper at this
-   shape in phase 5).
+   shape in phase 5);
+8. K3 (the grouped matmul of the MoE experts, CUDA, tensor cores in bf16)
+   against its plain PyTorch version on the card at the four olmoe-1b-7b
+   serving shapes (prefill and decode, x@w_gate / x@w_in and h@w_out) in
+   bf16, at the prefill and decode shapes in fp32, and at the three shapes
+   of tests/test_kernels.py in both types; its time at the prefill and
+   decode shapes beside the plain version, ``torch.bmm`` (a yardstick
+   only) and its bound;
+9. on a small input (the olmoe smoke config, fp32, nothing dropped), the
+   one-call prefill through K1 and K3 against token-by-token decode on the
+   plain attention path;
+10. serve olmoe-1b-7b at full width (bf16, random weights from seed 0):
+   4 requests, prompt 1024, 32 generated tokens; the prompt prefills in
+   one call, attention through K1 (16 launches), each layer's experts
+   through K3 (48 launches: three products a layer), and every decode
+   step runs K3 48 times and K1 never; the share of prefill assignments
+   that found their expert full is printed per layer;
+11. the MoE layer at full width: layer 0 of that model on its own inputs
+   (4 × 1024 tokens, capacity 640; 4 × 1, the decode step; 1 × 512 at
+   capacity factor 0.5, where experts overflow) on the card against the
+   same call on CPU copies (its plain route): identical routing (a token
+   whose top-k differs is allowed only at a margin below NEAR_TIE, and is
+   left out, with the experts it touches, and counted) and y within
+   bf16's tolerance, with the least router top-k margin printed.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  With no
@@ -53,6 +76,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -64,10 +88,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gmm as gmm_kernel  # noqa: E402
 from repro_torch.kernels import nvcc, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import Model, moe  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -85,6 +112,12 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = (
     serve.FULL_ARCH, serve.FULL_BATCH, serve.FULL_PROMPT, serve.FULL_GEN)
 SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = (
     serve.SSM_ARCH, serve.SSM_BATCH, serve.SSM_PROMPT, serve.SSM_GEN)
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN = (
+    serve.MOE_ARCH, serve.MOE_BATCH, serve.MOE_PROMPT, serve.MOE_GEN)
+# every kernel wrapper; each serving run sets all counts to 0 before it
+# and holds each to what that path must launch
+WRAPPERS = {"K1": ops.flash_attention, "K2": ops.ssd_chunked,
+            "K3": ops.grouped_matmul}
 # K2 against its plain version: tests/test_kernels.py:95, elementwise
 # |d| <= atol + rtol * |want| (y and the state reach ~1e2, and fp32 sums
 # in another order move them by ~1e-6 relative)
@@ -103,6 +136,20 @@ DUALITY_BATCH, DUALITY_PROMPT = 2, 512
 # tightly: a relative norm of at most BF16_DUALITY_AGREE, 1.3x the
 # 6.1256e-2 that seeded inputs gave on an NVIDIA H100 80GB HBM3, 700 W.
 BF16_DUALITY_AGREE = 0.08
+# K3 in fp32 against its plain version (cuBLAS's fp32 product): an fp32
+# sum of d products carries rounding that scales with its terms, not with
+# the result, and two correct summation orders differ by up to 3.7e-4
+# (NVIDIA H100 80GB HBM3, 700 W) at d 2048 where the result is near 0 (at
+# C 8 cuBLAS splits the sum over d, K3 does not).  So in fp32 the
+# tolerance's absolute part is scaled by max|want|, as the repo's bf16
+# model tests scale theirs; TF32 (~2e-2 off here) would still miss it.
+# The unscaled ratio is printed beside it.
+# Two routes of one MoE layer (the card's and the CPU's) sum the fp32
+# router product in another order, ~1e-7 apart: a token whose k-th and
+# (k+1)-th router probabilities are closer than NEAR_TIE may take either
+# expert.  Such a token, if its choice differs, is left out with every
+# expert it touches, and counted; any other difference fails.
+NEAR_TIE = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +208,35 @@ CASES = [
     Case("fp32 hd 256, non-causal", 1, 130, 2, 1, 256, 256, False,
          torch.float32),
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class GmmCase:
+    name: str
+    E: int
+    C: int
+    d: int
+    f: int
+    dtype: torch.dtype
+
+
+# olmoe-1b-7b serving: 64 experts, d_model 2048, expert d_ff 1024; the
+# prefill's capacity is 640 slots (4 x 1024 tokens), a decode step's 8
+GMM_PREFILL = GmmCase("prefill x@w_gate, x@w_in", 64, 640, 2048, 1024,
+                      torch.bfloat16)
+GMM_DECODE = GmmCase("decode x@w_gate, x@w_in", 64, 8, 2048, 1024,
+                     torch.bfloat16)
+GMM_PATH = [GMM_PREFILL,
+            GmmCase("prefill h@w_out", 64, 640, 1024, 2048, torch.bfloat16),
+            GMM_DECODE,
+            GmmCase("decode h@w_out", 64, 8, 1024, 2048, torch.bfloat16)]
+GMM_CASES = GMM_PATH + [
+    dataclasses.replace(GMM_PREFILL, name="prefill, fp32",
+                        dtype=torch.float32),
+    dataclasses.replace(GMM_DECODE, name="decode, fp32", dtype=torch.float32),
+] + [GmmCase(f"E{E} C{C} d{d} f{f}", E, C, d, f, dt)   # tests/test_kernels.py
+     for E, C, d, f in ((2, 16, 32, 32), (4, 64, 128, 64), (3, 32, 96, 48))
+     for dt in (torch.bfloat16, torch.float32)]
 
 
 def sh(*cmd: str) -> str:
@@ -247,6 +323,18 @@ def ssd_bound_ms(c: SsdCase) -> tuple[float, str]:
                                        else "operations")
 
 
+def gmm_bound_ms(c: GmmCase) -> tuple[float, str]:
+    """Least time for K3's work: x and w read once, out written once, and
+    2·E·C·d·f operations at the peak for the inputs' type."""
+    elem = torch.finfo(c.dtype).bits // 8
+    nbytes = elem * c.E * (c.C * c.d + c.d * c.f + c.C * c.f)
+    flops = 2 * c.E * c.C * c.d * c.f
+    peak = BF16_FLOP_PER_S if c.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm()).item()
 
@@ -284,9 +372,10 @@ def phase_box() -> str:
           f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
     print("nvcc:", sh(nvcc.compiler(), "--version").splitlines()[-1])
+    kernels = (fa, ssd_kernel, gmm_kernel)
     with ThreadPoolExecutor() as pool:      # one nvcc per source, together
-        builds = list(pool.map(lambda m: m.build(), (fa, ssd_kernel)))
-    for mod, b in zip((fa, ssd_kernel), builds):
+        builds = list(pool.map(lambda m: m.build(), kernels))
+    for mod, b in zip(kernels, builds):
         print(f"build {mod.SOURCE.name}: {b.seconds:.2f} s -> "
               f"{b.path.parent.name}/{b.path.name}")
         for line in ptxas_lines(b.log):
@@ -336,23 +425,35 @@ def phase_k1() -> dict:
             "library_ms": library_ms}
 
 
-def phase_small() -> None:
+def phase_small(arch: str) -> None:
     """The repo's decode == prefill check on a small input (fp32, smoke
-    config): the one-call prefill through K1 against token-by-token decode
-    on the plain path, over the same cache rows."""
-    cfg = configs.get_smoke(SERVE_ARCH)
+    config): the one-call prefill through the kernels against
+    token-by-token decode on the plain attention path, over the same cache
+    rows.  The smoke configs' capacity factor 16 drops nothing, so an MoE
+    layer routes each token alike both ways."""
+    cfg = configs.get_smoke(arch)
     B, S = 2, 40
     model, tokens = serve.setup(cfg, B, S, "cuda", dtype=torch.float32,
                                 seed=1)
-    with torch.inference_mode():
+    with torch.inference_mode(), moe.recorded_routes() as seen:
         one_call, _ = model.decode_step(model.init_cache(B, S), tokens, 0)
         model.run = dataclasses.replace(model.run, attn_impl="plain")
         cache = model.init_cache(B, S)
         by_token = torch.cat([model.decode_step(cache, tokens[:, t:t + 1], t)[0]
                               for t in range(S)], dim=1)
     err = (one_call - by_token).abs().max().item()
-    print(f"small input ({cfg.name}, fp32): one-call prefill through K1 vs "
-          f"token-by-token plain decode: max|d| {err:.3e} (tol 1e-04)")
+    moe_note = ""
+    if seen:
+        dropped = sum(int(r.dropped) for r in seen)
+        margin = min(r.margins.min().item() for r in seen)
+        moe_note = (f"; MoE: {dropped} assignments dropped, least router "
+                    f"top-k margin {margin:.3e}")
+        if dropped:
+            raise AssertionError(f"{cfg.name} dropped assignments at "
+                                 f"capacity factor {cfg.capacity_factor}")
+    print(f"small input ({cfg.name}, fp32): one-call prefill through the "
+          f"kernels vs token-by-token plain decode: max|d| {err:.3e} (tol "
+          f"1e-04){moe_note}")
     if not err <= 1e-4:
         raise AssertionError(f"one-call prefill and decode disagree: {err}")
 
@@ -378,16 +479,17 @@ class Served:
     model: Model
     prompts: torch.Tensor
     last_logits: torch.Tensor       # kernel path, last prompt position, fp32
-    launches: int
+    launches: dict[str, int]        # per kernel, prefill and decode
 
 
-def serve_run(arch: str, batch: int, prompt: int, gen: int, wrapper,
-              kernel: str) -> Served:
+def serve_run(arch: str, batch: int, prompt: int, gen: int,
+              want: dict[str, tuple[int, int]]) -> Served:
     """Serve ``arch`` at full width (bf16, random weights from seed 0):
     ``batch`` prompts of ``prompt`` tokens prefilled in one call, then
-    ``gen - 1`` greedy decode steps.  ``wrapper`` (an ``ops`` function)
-    must launch ``kernel`` once per layer in prefill and never in decode;
-    tokens and logits are checked, the times and peak memory printed."""
+    ``gen - 1`` greedy decode steps.  ``want`` maps a kernel of
+    ``WRAPPERS`` to the launches the prefill and each decode step must
+    make (every other kernel: none); tokens and logits are checked, the
+    times and peak memory printed."""
     cfg = configs.get(arch)
     t0 = time.perf_counter()
     model, prompts = serve.setup(cfg, batch, prompt, "cuda")
@@ -398,6 +500,14 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int, wrapper,
           f"{n_params / 1e6:.3f} M parameters ({', '.join(types)}), built "
           f"in {time.perf_counter() - t0:.1f} s")
 
+    def counts() -> dict[str, int]:
+        return {name: w.launches for name, w in WRAPPERS.items()}
+
+    def zero() -> None:
+        for w in WRAPPERS.values():
+            w.launches = 0
+
+    n_dec = gen - 1
     with torch.inference_mode():
         # warm-up request (cuBLAS handles, allocator), not counted
         serve.generate(model, prompts[:, :64], 2)
@@ -405,29 +515,35 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int, wrapper,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-        wrapper.launches = 0
+        zero()
         t0 = time.perf_counter()
         tok, logits, cache = serve.prefill(model, cache, prompts)
         torch.cuda.synchronize()
         ttft = time.perf_counter() - t0
-        prefill_launches = wrapper.launches
+        prefill_launches = counts()
 
-        wrapper.launches = 0
+        zero()
         t0 = time.perf_counter()
-        rest, cache = serve.decode(model, cache, tok, prompt, gen - 1)
+        rest, cache = serve.decode(model, cache, tok, prompt, n_dec)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        decode_launches = wrapper.launches
+        decode_launches = counts()
         peak = torch.cuda.max_memory_allocated()
 
         tokens = torch.cat([tok, rest], dim=1)
         last_logits, _ = model.decode_step(cache, rest[:, -1:],
                                            prompt + gen - 1)
-    print(f"{kernel} launches: prefill {prefill_launches} (want "
-          f"{cfg.n_layers}), decode {decode_launches} (want 0)")
-    if prefill_launches != cfg.n_layers or decode_launches != 0:
-        raise AssertionError(f"the serving path did not run {kernel} once "
-                             f"per layer in prefill and never in decode")
+    bad = []
+    for name in WRAPPERS:
+        per_prefill, per_step = want.get(name, (0, 0))
+        got = (prefill_launches[name], decode_launches[name])
+        print(f"{name} launches: prefill {got[0]} (want {per_prefill}), "
+              f"decode {got[1]} over {n_dec} steps (want {per_step} a step)")
+        if got != (per_prefill, per_step * n_dec):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"the serving path of {cfg.name} did not launch "
+                             f"{bad} as it must")
     if tuple(tokens.shape) != (batch, gen) \
             or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
         raise AssertionError(f"bad generated tokens {tokens.shape}")
@@ -436,7 +552,6 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int, wrapper,
         raise AssertionError("non-finite logits")
     print("logits finite: prefill [B,P,V] and the last decode step")
 
-    n_dec = gen - 1
     print(f"serve {cfg.name}: TTFT {1e3 * ttft:.2f} ms (prefill {batch}x"
           f"{prompt}), decode {1e3 * decode_s / n_dec:.3f} ms/token step, "
           f"decode {batch * n_dec / decode_s:.1f} tokens/s, end to end "
@@ -444,12 +559,13 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int, wrapper,
           f"memory {peak / 2**30:.3f} GiB")
     print("sample:", tokens[0, :16].tolist())
     return Served(model, prompts, logits[:, -1].float(),
-                  prefill_launches + decode_launches)
+                  {name: prefill_launches[name] + decode_launches[name]
+                   for name in WRAPPERS})
 
 
 def phase_serve() -> dict:
     run = serve_run(SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
-                    ops.flash_attention, "K1")
+                    {"K1": (configs.get(SERVE_ARCH).n_layers, 0)})
     model, kern_last = run.model, run.last_logits
     with torch.inference_mode():
         model.run = dataclasses.replace(model.run, attn_impl="plain")
@@ -473,7 +589,7 @@ def phase_serve() -> dict:
             "the kernel path's prefill logits are less accurate than the "
             "plain bf16 path's, or disagree with them by more than twice the "
             "plain path's own bf16 error")
-    return {"launches": run.launches}
+    return run.launches
 
 
 def phase_k2() -> dict:
@@ -614,7 +730,7 @@ def phase_duality() -> None:
 
 def phase_serve_ssm() -> dict:
     run = serve_run(SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN,
-                    ops.ssd_chunked, "K2")
+                    {"K2": (configs.get(SSM_ARCH).n_layers, 0)})
     with torch.inference_mode():
         ref_last = last_prefill_logits(fp32_copy(run.model), run.prompts)
     bf16_last = run.last_logits
@@ -626,7 +742,172 @@ def phase_serve_ssm() -> dict:
           f"{(bf16_last - ref_last).abs().max().item():.4e}, argmax "
           f"agreement {agree.item():.4f} (reported: bf16 is judged at "
           f"phase 6's shape, K2's wrapper at this one in phase 5)")
-    return {"launches": run.launches}
+    return run.launches
+
+
+def phase_k3() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {}
+
+    def inputs(c: GmmCase):
+        return (torch.randn((c.E, c.C, c.d), generator=gen,
+                            device="cuda").to(c.dtype),
+                torch.randn((c.E, c.d, c.f), generator=gen,
+                            device="cuda").to(c.dtype))
+
+    with torch.inference_mode():
+        for c in GMM_CASES:
+            x, w = inputs(c)
+            got = gmm_kernel.gmm_fwd(x, w)
+            want = ref.gmm_ref(x, w)
+            torch.cuda.synchronize()
+            tol = TOL[c.dtype]
+            err, worst = compare(got, want, tol)
+            scale = want.abs().max().item()
+            d_abs = (got.float() - want.float()).abs()
+            scaled = (d_abs / (tol * scale + tol * want.float().abs())
+                      ).max().item()
+            ok = (worst if c.dtype == torch.bfloat16 else scaled) <= 1.0
+            print(f"K3 {c.name:26s} E{c.E} C{c.C} d{c.d} f{c.f} "
+                  f"{str(c.dtype)[6:]:8s}: max|d| {err:.3e}, max|want| "
+                  f"{scale:.3e}, worst |d| / (tol + tol |want|) {worst:.3f}, "
+                  f"/ (tol max|want| + tol |want|) {scaled:.3f} (tol "
+                  f"{tol:.0e}, judged by the "
+                  f"{'first' if c.dtype == torch.bfloat16 else 'second'}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K3 disagrees with its plain version "
+                                     f"at {c.name}")
+            errs[c.name] = err
+            del x, w, got, want, d_abs
+
+        timed = {}
+        for c in (GMM_PREFILL, GMM_DECODE):
+            x, w = inputs(c)
+            timed[c.name] = (
+                time_ms(lambda: ops.grouped_matmul(x, w)),
+                time_ms(lambda: ref.gmm_ref(x, w)),
+                time_ms(lambda: torch.bmm(x, w)),
+                *gmm_bound_ms(c))
+            ms, plain_ms, library_ms, bound_ms, bound_by = timed[c.name]
+            print(f"K3 at the {c.name.split()[0]} shape (E{c.E} C{c.C} d{c.d} "
+                  f"f{c.f}): {ms:.4f} ms; plain {plain_ms:.4f} ms; torch.bmm "
+                  f"(yardstick) {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
+            del x, w
+    ms, plain_ms, library_ms, bound_ms, bound_by = timed[GMM_PREFILL.name]
+    return {"name": "gmm_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:23",
+            "max_abs_err": max(errs[c.name] for c in GMM_PATH), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_serve_moe() -> tuple[dict, Served]:
+    cfg = configs.get(MOE_ARCH)
+    L = cfg.n_layers
+    run = serve_run(MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN,
+                    {"K1": (L, 0), "K3": (3 * L, 3 * L)})
+    # the same prefill once more, its routings recorded (not timed)
+    model, prompts = run.model, run.prompts
+    with torch.inference_mode(), moe.recorded_routes() as seen:
+        serve.prefill(model, model.init_cache(MOE_BATCH, MOE_PROMPT),
+                      prompts)
+        drops = [int(r.dropped) for r in seen]
+    T = MOE_BATCH * MOE_PROMPT
+    slots = T * cfg.n_experts_per_tok
+    C = moe._capacity(T, cfg)
+    print(f"serve {cfg.name}: capacity {C} slots per expert (factor "
+          f"{cfg.capacity_factor}, {T} tokens in the one-call prefill); "
+          f"share of the {slots} prefill assignments dropped per layer: "
+          f"{[round(n / slots, 4) for n in drops]}; all layers "
+          f"{sum(drops) / (slots * len(drops)):.4f}")
+    if len(drops) != L:
+        raise AssertionError(f"{len(drops)} MoE routings in the prefill, "
+                             f"want {L}")
+    return run.launches, run
+
+
+def routing_agreement(r: moe.Routing, want: moe.Routing) -> tuple:
+    """Compare two routings of the same tokens (``r`` on the card, ``want``
+    on the CPU).  A token whose top-k differs is allowed only as a
+    near-tie (margin below NEAR_TIE in ``want``); it and every expert it
+    touches on either side are then left out.  Returns (flipped tokens,
+    touched experts, tokens compared, {field: identical on the rest},
+    whether every flip was a near-tie)."""
+    ids = r.ids.cpu()
+    flipped = (ids != want.ids).any(dim=1)
+    near_ties = bool((want.margins[flipped] < NEAR_TIE).all())
+    touched = torch.zeros(want.counts.shape[0], dtype=torch.bool)
+    touched[ids[flipped].reshape(-1)] = True
+    touched[want.ids[flipped].reshape(-1)] = True
+    same = {name: torch.equal(getattr(r, name).cpu()[~touched],
+                              getattr(want, name)[~touched])
+            for name in ("tok", "valid", "counts")}
+    same["ids"] = torch.equal(ids[~flipped], want.ids[~flipped])
+    rows = ~(touched[want.ids].any(dim=1) | touched[ids].any(dim=1))
+    return flipped, touched, rows, same, near_ties
+
+
+def phase_moe_layer(run: Served) -> None:
+    """Layer 0's MoE on its own inputs (the prompts' hidden states after
+    block 0's attention) on the card against the same call on CPU copies,
+    which runs K3's plain version."""
+    model, cfg = run.model, run.model.cfg
+    k = cfg.n_experts_per_tok
+    bp = model.segments[0][0].at(0)
+    with torch.inference_mode():
+        x = model.embed[run.prompts].to(model.dtype)
+        out, _ = attn.gqa_apply(bp["attn"], rmsnorm(bp["ln1"], x,
+                                                    cfg.norm_eps), cfg)
+        h = rmsnorm(bp["ln2"], x + out, cfg.norm_eps)
+        p_cpu = {name: v.cpu() for name, v in bp["moe"].items()}
+    bad = []
+    for what, xs, factor in (
+            ("B 4 S 1024", h, cfg.capacity_factor),
+            ("B 4 S 1 (a decode step)", h[:, -1:], cfg.capacity_factor),
+            ("B 1 S 512", h[:1, :512], 0.5)):
+        c = dataclasses.replace(cfg, capacity_factor=factor)
+        B, S, d = xs.shape
+        T = B * S
+        with torch.inference_mode(), moe.recorded_routes() as seen:
+            y, aux = moe.moe_apply(bp["moe"], xs, c)
+            want_y, want_aux = moe.moe_apply(p_cpu, xs.cpu(), c)
+            torch.cuda.synchronize()
+        r, want_r = seen
+        flipped, touched, rows, same, near_ties = routing_agreement(r,
+                                                                    want_r)
+        if not near_ties:
+            bad.append(f"{what}: routing differs beyond near-ties")
+        if not rows.any():
+            bad.append(f"{what}: every token was left out")
+            continue
+        yg, yw = y.cpu().float().reshape(-1, d), want_y.float().reshape(-1, d)
+        scale = yw.abs().max().item()
+        d_y = (yg - yw).abs()[rows]
+        worst = (d_y / (TOL[torch.bfloat16] * (scale + yw.abs()[rows]))
+                 ).max().item()
+        # a flipped token moves 1/(kT) of the load between two experts,
+        # which moves aux by at most E/(kT)
+        aux_ok = abs(aux.item() - want_aux.item()) <= 1e-5 * abs(
+            want_aux.item()) + int(flipped.sum()) * c.n_experts / (k * T)
+        print(f"MoE layer 0, {what} (T {T}), capacity factor {factor} "
+              f"(C {moe._capacity(T, c)}): dropped {int(r.dropped)} of "
+              f"{T * k} assignments (CPU {int(want_r.dropped)}); least "
+              f"router top-k margin {want_r.margins.min().item():.3e}; "
+              f"near-tie tokens that routed otherwise: {int(flipped.sum())} "
+              f"(left out with {int(touched.sum())} experts, "
+              f"{int((~rows).sum())} tokens); routing identical {same}; y "
+              f"max|d| {d_y.max().item():.3e} (max|y| {scale:.3e}), worst "
+              f"|d| / (tol max|y| + tol |y|) {worst:.3f} (tol "
+              f"{TOL[torch.bfloat16]:.0e}); aux {aux.item():.6f} vs "
+              f"{want_aux.item():.6f}")
+        if not (all(same.values()) and worst <= 1.0 and aux_ok):
+            bad.append(what)
+    if bad:
+        raise AssertionError(f"the MoE layer on the card disagrees with its "
+                             f"plain route: {bad}")
 
 
 def main() -> int:
@@ -635,16 +916,25 @@ def main() -> int:
         return 1
     card = phase_box()
     k1 = phase_k1()
-    phase_small()
-    k1.update(phase_serve())
+    phase_small(SERVE_ARCH)
+    launches = Counter(phase_serve())       # each main path's launches
     k2 = phase_k2()
     phase_duality()
-    k2.update(phase_serve_ssm())
+    launches.update(phase_serve_ssm())
+    k3 = phase_k3()
+    phase_small(MOE_ARCH)
+    moe_launches, run = phase_serve_moe()
+    launches.update(moe_launches)
+    phase_moe_layer(run)
+    del run
+    kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
+    for name, kern in kernels.items():
+        kern["launches"] = launches[name]
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
     print(json.dumps({"kernels": [{k: kern[k] for k in order}
-                                  for kern in (k1, k2)]}))
+                                  for kern in kernels.values()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gmm as _gmm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 
@@ -104,3 +105,29 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_chunked.launches = 0
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [E,C,d]; w: [E,d,f] → [E,C,f] in x's dtype, summed in fp32: the
+    per-expert products of the MoE layer, on K3.
+
+    The JAX wrapper's ``block_c/block_f/block_d`` tile the TPU kernel; K3
+    picks its own tiles, so the port takes none.  Forward only: a CUDA
+    input that requires grad raises while grad mode is on (the experts'
+    weights are parameter slices, which keep ``requires_grad`` under
+    ``torch.inference_mode()``).
+    """
+    if x.device.type == "cpu":
+        return _ref.gmm_ref(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_matmul runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "grouped_matmul has no backward on CUDA yet (ROADMAP Queue 1, "
+            "training slice); call it under torch.inference_mode()")
+    out = _gmm.gmm_fwd(x, w)
+    grouped_matmul.launches += 1
+    return out
+
+
+grouped_matmul.launches = 0

@@ -107,3 +107,9 @@ def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "bhn,bhp,bh->bhpn", Bh[:, t], xf[:, t], dtf[:, t])
         ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], s))
     return torch.stack(ys, dim=1).to(x.dtype), s
+
+
+def gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [E,C,d]; w: [E,d,f] → [E,C,f]: the grouped matmul, K3's plain
+    version, summed in fp32 and returned in x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

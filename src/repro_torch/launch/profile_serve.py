@@ -1,10 +1,12 @@
 """Where a full-width serving run's device time goes: torch.profiler over
 one prefill and a few decode steps of a run chip_smoke.py drives
 (``serve.FULL_*``: deepseek-7b, 4 prompts of 1024; ``serve.SSM_*``:
-mamba2-130m, 8 prompts of 4096; bf16, random weights from seed 0).
+mamba2-130m, 8 prompts of 4096; ``serve.MOE_*``: olmoe-1b-7b, 4 prompts of
+1024; bf16, random weights from seed 0).
 
     python -m repro_torch.launch.profile_serve                      # deepseek-7b
     python -m repro_torch.launch.profile_serve --arch mamba2-130m
+    python -m repro_torch.launch.profile_serve --arch olmoe-1b-7b
 
 Each phase runs on the same cache, first without the profiler, for its
 wall time (the least of ``WALL_RUNS`` runs), and later under it, for the
@@ -32,7 +34,8 @@ DECODE_STEPS = 8
 WALL_RUNS = 3
 ROWS = 16           # operators listed per phase
 RUNS = {serve.FULL_ARCH: (serve.FULL_BATCH, serve.FULL_PROMPT),
-        serve.SSM_ARCH: (serve.SSM_BATCH, serve.SSM_PROMPT)}
+        serve.SSM_ARCH: (serve.SSM_BATCH, serve.SSM_PROMPT),
+        serve.MOE_ARCH: (serve.MOE_BATCH, serve.MOE_PROMPT)}
 
 
 def _device_us(prof) -> float:

@@ -3,9 +3,11 @@
 The prompt is prefilled with ONE ``decode_step`` over ``[B, prompt_len]``
 at cache index 0 (where the JAX demo prefills token by token): attention
 blocks run it through the flash-attention kernel K1 on the "kernel" path,
-Mamba2 blocks through the chunked SSD scan on K2.  Then tokens are decoded
-one at a time: attention on the plain masked path, Mamba2 on the
-single-step recurrence.
+Mamba2 blocks through the chunked SSD scan on K2, MoE blocks their experts
+through the grouped matmul K3.  Then tokens are decoded one at a time:
+attention on the plain masked path, Mamba2 on the single-step recurrence,
+MoE experts on K3 again.  An MoE block's capacity follows the tokens of the
+call (B·prompt_len in the prefill, B in a decode step), as in JAX.
 
     python -m repro_torch.launch.serve --device cpu          # smoke config
     python -m repro_torch.launch.serve --full --prompt-len 4096   # on the card
@@ -22,10 +24,10 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import Model
 
-# the full-width serving runs that chip_smoke.py (both) and profile_serve.py
-# (the first) drive
+# the full-width serving runs that chip_smoke.py and profile_serve.py drive
 FULL_ARCH, FULL_BATCH, FULL_PROMPT, FULL_GEN = "deepseek-7b", 4, 1024, 32
 SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = "mamba2-130m", 8, 4096, 32
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN = "olmoe-1b-7b", 4, 1024, 32
 
 
 def setup(cfg: ArchConfig, batch: int, prompt_len: int, device=None,

@@ -7,8 +7,10 @@ the repeats where the JAX package scans.
 
 The port runs attention + dense-FFN blocks (the dense GQA families:
 deepseek-7b, chatglm3, deepseek-coder, nemotron, internvl2's language
-model) and Mamba2 blocks (mamba2-130m).  Other blocks raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+model), Mamba2 blocks (mamba2-130m) and MoE FFN blocks on one device
+(olmoe-1b-7b; with the other two, jamba-v0.1-52b).  MLA attention and the
+encoder raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 
 The Model exposes:
 - ``init(generator)``               → fills the parameters, returns self
@@ -27,6 +29,7 @@ from torch import nn
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     dense_init, embed_init, mlp, mlp_init, mlp_shapes, rmsnorm,
@@ -90,7 +93,7 @@ def derive_segments(cfg: ArchConfig, *, cross: bool = False,
     return segments
 
 
-def _check_supported(cfg: ArchConfig, segments: list[Segment]) -> None:
+def _check_supported(cfg: ArchConfig) -> None:
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: encoder and cross-attention blocks are not ported "
@@ -99,12 +102,6 @@ def _check_supported(cfg: ArchConfig, segments: list[Segment]) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1, "
             "MLA and MTP)")
-    for seg in segments:
-        for spec in seg.pattern:
-            if spec.ffn == "moe":
-                raise NotImplementedError(
-                    f"{cfg.name}: MoE blocks are not ported yet (ROADMAP "
-                    "Queue 1, MoE)")
 
 
 def _check_run(run: RunConfig) -> None:
@@ -142,18 +139,24 @@ class _Block(nn.Module):
             return nn.ParameterDict({name: empty(*shape)
                                      for name, (shape, _) in shapes.items()})
 
+        def with_fp32(shapes, fp32):
+            return nn.ParameterDict({
+                name: empty(*shape, dtype=torch.float32
+                            if name in fp32 else dtype)
+                for name, shape in shapes.items()})
+
         self.ln1 = empty(cfg.d_model)
         if spec.mixer == "attn":
             self.attn = stacked(attn.gqa_shapes(cfg))
         else:
-            self.ssm = nn.ParameterDict({
-                name: empty(*shape, dtype=torch.float32
-                            if name in ssm.FP32_PARAMS else dtype)
-                for name, shape in ssm.ssm_shapes(cfg).items()})
+            self.ssm = with_fp32(ssm.ssm_shapes(cfg), ssm.FP32_PARAMS)
         if spec.ffn == "dense":
             self.ln2 = empty(cfg.d_model)
             self.mlp = stacked(mlp_shapes(cfg.d_model, cfg.d_ff,
                                           cfg.mlp_type))
+        elif spec.ffn == "moe":
+            self.ln2 = empty(cfg.d_model)
+            self.moe = with_fp32(moe.moe_shapes(cfg), moe.FP32_PARAMS)
 
     def init_repeat(self, generator: torch.Generator, r: int) -> None:
         """Draw repeat r's parameters as the JAX block init does."""
@@ -172,6 +175,11 @@ class _Block(nn.Module):
                                     cfg.mlp_type, dtype=p.dtype,
                                     device=p.device).items():
                 self.mlp[name][r].copy_(w)
+        if hasattr(self, "moe"):
+            self.ln2[r].fill_(1.0)
+            for name, w in moe.moe_init(generator, cfg, dtype=p.dtype,
+                                        device=p.device).items():
+                self.moe[name][r].copy_(w)
 
     def at(self, r: int) -> dict:
         """Repeat r's parameters as the nested dict the layer functions take."""
@@ -192,7 +200,7 @@ class Model(nn.Module):
         self.run = run
         self.dtype = dtype
         self.segments_spec = derive_segments(cfg)
-        _check_supported(cfg, self.segments_spec)
+        _check_supported(cfg)
         _check_run(run)
         dev = _device.resolve(device)
         d, V = cfg.d_model, cfg.vocab_size
@@ -240,7 +248,9 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def _apply_block(self, bp: dict, spec: BlockSpec, x, *,
                      positions=None, cache=None, cache_index=None):
+        """One block: (x, the block's MoE aux loss, or None)."""
         cfg, run = self.cfg, self.run
+        aux = None
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
         if spec.mixer == "attn":
             out, _ = attn.gqa_apply(
@@ -256,11 +266,19 @@ class Model(nn.Module):
         if spec.ffn == "dense":
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
             x = x + mlp(bp["mlp"], h, cfg.mlp_type)
-        return x
+        elif spec.ffn == "moe":
+            h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+            y, aux = moe.moe_apply(bp["moe"], h, cfg)
+            x = x + y
+        return x, aux
 
     def _run_segments(self, x, *, positions=None, caches=None,
                       cache_index=None):
-        """Loop each segment over its repeats.  Caches are written in place."""
+        """Loop each segment over its repeats.  Returns (x, the MoE blocks'
+        summed aux loss: a 0-d fp32 tensor, or 0.0 without MoE blocks),
+        which the training slice will add to the loss.  Caches are written
+        in place."""
+        total_aux = 0.0
         for si, seg in enumerate(self.segments_spec):
             for r in range(seg.repeats):
                 for j, spec in enumerate(seg.pattern):
@@ -268,11 +286,13 @@ class Model(nn.Module):
                     if caches is not None:
                         cache = {name: {k: v[r] for k, v in c.items()}
                                  for name, c in caches[si][j].items()}
-                    x = self._apply_block(
+                    x, aux = self._apply_block(
                         self.segments[si][j].at(r), spec, x,
                         positions=positions, cache=cache,
                         cache_index=cache_index)
-        return x
+                    if aux is not None:
+                        total_aux = total_aux + aux
+        return x, total_aux
 
     # ------------------------------------------------------------------
     def _embed_inputs(self, batch: dict) -> torch.Tensor:
@@ -293,7 +313,7 @@ class Model(nn.Module):
     def forward(self, batch: dict) -> torch.Tensor:
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x = self._run_segments(x, positions=positions)
+        x, _ = self._run_segments(x, positions=positions)
         return self._head(x)
 
     # ------------------------------------------------------------------
@@ -329,7 +349,11 @@ class Model(nn.Module):
         call.  Attention blocks run it through K1 on the "kernel" path; SSM
         blocks run the chunked scan through K2 from the cache's state (S a
         multiple of the chunk, or shorter than it) and leave the final
-        state and conv tail in the cache, for any index."""
+        state and conv tail in the cache, for any index.  MoE blocks run
+        their experts on K3 with a capacity computed from the B·S tokens of
+        the call, as JAX's ``forward`` over the same tokens does: where an
+        expert overflows, a one-call prefill drops assignments that JAX's
+        token-by-token decode (B tokens a call) keeps."""
         x = self.embed[tokens].to(self.dtype)
-        x = self._run_segments(x, caches=caches, cache_index=index)
+        x, _ = self._run_segments(x, caches=caches, cache_index=index)
         return self._head(x), caches

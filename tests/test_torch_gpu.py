@@ -1,5 +1,5 @@
-"""The port on the card: K1 and K2 built from source and held against their
-plain versions, and the serving paths counting their launches.
+"""The port on the card: K1, K2 and K3 built from source and held against
+their plain versions, and the serving paths counting their launches.
 
 Run on a machine with a CUDA device (it imports no JAX):
 
@@ -7,6 +7,8 @@ Run on a machine with a CUDA device (it imports no JAX):
 
 Without a card every test here skips; with one, a missing ``nvcc`` fails.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.launch import serve
-from repro_torch.models import Model
+from repro_torch.models import Model, moe
 
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),   # tests/test_kernels.py:15
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -176,3 +178,81 @@ def test_mamba2_serving_runs_k2_once_per_layer_in_prefill(cuda):
         assert ops.ssd_chunked.launches == before + cfg.n_layers
     assert torch.isfinite(logits).all()
     assert tuple(rest.shape) == (2, 4)
+
+
+@pytest.mark.parametrize("E,C,d,f,dtype", [
+    (2, 16, 32, 32, torch.bfloat16),        # tests/test_kernels.py:137-141
+    (4, 64, 128, 64, torch.bfloat16),
+    (3, 32, 96, 48, torch.bfloat16),
+    (3, 32, 96, 48, torch.float32),
+    (8, 8, 64, 32, torch.bfloat16),         # olmoe smoke decode: C 8
+    (64, 8, 2048, 1024, torch.bfloat16),    # olmoe decode x@w_gate
+    (64, 640, 1024, 2048, torch.bfloat16),  # olmoe prefill h@w_out
+    (5, 200, 136, 72, torch.float32),       # ragged C, d and f tiles
+    (5, 200, 136, 72, torch.bfloat16),
+])
+def test_grouped_matmul_matches_plain(cuda, E, C, d, f, dtype):
+    rng = np.random.default_rng(0)
+    x, w = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+            .to(cuda, dtype) for s in ((E, C, d), (E, d, f)))
+    before = ops.grouped_matmul.launches
+    with torch.inference_mode():
+        got = ops.grouped_matmul(x, w)
+        want = ref.gmm_ref(x, w)
+        torch.cuda.synchronize()
+    assert ops.grouped_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_grouped_matmul_refuses_grad_and_bad_shapes(cuda):
+    x = torch.zeros((2, 8, 16), device=cuda)
+    w = torch.zeros((2, 16, 8), device=cuda)
+    with pytest.raises(NotImplementedError):
+        ops.grouped_matmul(x.clone().requires_grad_(), w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.grouped_matmul(torch.zeros((2, 8, 12), device=cuda),
+                           torch.zeros((2, 12, 8), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.parametrize("capacity_factor", [16.0, 0.5])
+def test_moe_apply_on_the_card_matches_its_plain_route(cuda, capacity_factor):
+    """The MoE layer on K3 against the same call on CPU copies: the same
+    routing and y within bf16's tolerance, with drops at factor 0.5."""
+    cfg = dataclasses.replace(configs.get_smoke("olmoe-1b-7b"),
+                              capacity_factor=capacity_factor)
+    g = torch.Generator(cuda).manual_seed(0)
+    p = moe.moe_init(g, cfg, dtype=torch.bfloat16, device=cuda)
+    x = torch.randn((2, 32, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode(), moe.recorded_routes() as seen:
+        y, aux = moe.moe_apply(p, x, cfg)
+        want_y, want_aux = moe.moe_apply({k: v.cpu() for k, v in p.items()},
+                                         x.cpu(), cfg)
+    r, want_r = seen
+    for name in ("ids", "tok", "valid", "counts"):
+        assert torch.equal(getattr(r, name).cpu(), getattr(want_r, name)), name
+    assert (int(want_r.dropped) > 0) == (capacity_factor < 1)
+    scale = max(1.0, want_y.abs().max().item())
+    torch.testing.assert_close(y.cpu().float(), want_y.float(), rtol=2e-2,
+                               atol=2e-2 * scale)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+
+
+def test_olmoe_prefill_runs_k3_three_times_per_moe_layer(cuda):
+    cfg = configs.get_smoke("olmoe-1b-7b")
+    model = Model(cfg, dtype=torch.bfloat16,
+                  device=cuda).init(torch.Generator(cuda).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
+    with torch.inference_mode():
+        cache = model.init_cache(2, 30)
+        k3, k1 = ops.grouped_matmul.launches, ops.flash_attention.launches
+        tok, logits, cache = serve.prefill(model, cache, prompts)
+        assert ops.grouped_matmul.launches == k3 + 3 * cfg.n_layers
+        assert ops.flash_attention.launches == k1 + cfg.n_layers
+        serve.decode(model, cache, tok, 24, 4)
+        assert ops.grouped_matmul.launches == k3 + 3 * cfg.n_layers * 5
+        assert ops.flash_attention.launches == k1 + cfg.n_layers
+    assert torch.isfinite(logits).all()

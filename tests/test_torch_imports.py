@@ -44,6 +44,7 @@ def test_port_modules_import_without_jax_or_repro():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     for mod in ("repro_torch.kernels.ops", "repro_torch.kernels.ssd",
+                "repro_torch.kernels.gmm", "repro_torch.models.moe",
                 "repro_torch.kernels.nvcc", "repro_torch.models.ssm",
                 "repro_torch.models.model",
                 "repro_torch.launch.serve", "repro_torch.checkpoint.bridge",
