@@ -43,9 +43,9 @@ Phases (each raises on failure):
    against its plain PyTorch version on the card at the four olmoe-1b-7b
    serving shapes (prefill and decode, x@w_gate / x@w_in and h@w_out) in
    bf16, at the prefill and decode shapes in fp32, and at the three shapes
-   of tests/test_kernels.py in both types; its time at the prefill and
-   decode shapes beside the plain version, ``torch.bmm`` (a yardstick
-   only) and its bound;
+   of tests/test_kernels.py in both types; its time at the four serving
+   shapes beside the plain version, ``torch.bmm`` (a yardstick only) and
+   its bound;
 9. on a small input (the olmoe smoke config, fp32, nothing dropped), the
    one-call prefill through K1 and K3 against token-by-token decode on the
    plain attention path;
@@ -138,11 +138,12 @@ DUALITY_BATCH, DUALITY_PROMPT = 2, 512
 BF16_DUALITY_AGREE = 0.08
 # K3 in fp32 against its plain version (cuBLAS's fp32 product): an fp32
 # sum of d products carries rounding that scales with its terms, not with
-# the result, and two correct summation orders differ by up to 3.7e-4
+# the result, and two correct summation orders differ by up to 4.4e-4
 # (NVIDIA H100 80GB HBM3, 700 W) at d 2048 where the result is near 0 (at
 # C 8 cuBLAS splits the sum over d, K3 does not).  So in fp32 the
 # tolerance's absolute part is scaled by max|want|, as the repo's bf16
-# model tests scale theirs; TF32 (~2e-2 off here) would still miss it.
+# model tests scale theirs; TF32's 10-bit mantissa would still miss it
+# (by an error of ~3e-2 here, estimated, not measured).
 # The unscaled ratio is printed beside it.
 # Two routes of one MoE layer (the card's and the CPU's) sum the fp32
 # router product in another order, ~1e-7 apart: a token whose k-th and
@@ -782,7 +783,7 @@ def phase_k3() -> dict:
             del x, w, got, want, d_abs
 
         timed = {}
-        for c in (GMM_PREFILL, GMM_DECODE):
+        for c in GMM_PATH:
             x, w = inputs(c)
             timed[c.name] = (
                 time_ms(lambda: ops.grouped_matmul(x, w)),
@@ -790,7 +791,7 @@ def phase_k3() -> dict:
                 time_ms(lambda: torch.bmm(x, w)),
                 *gmm_bound_ms(c))
             ms, plain_ms, library_ms, bound_ms, bound_by = timed[c.name]
-            print(f"K3 at the {c.name.split()[0]} shape (E{c.E} C{c.C} d{c.d} "
+            print(f"K3 at the {c.name} shape (E{c.E} C{c.C} d{c.d} "
                   f"f{c.f}): {ms:.4f} ms; plain {plain_ms:.4f} ms; torch.bmm "
                   f"(yardstick) {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
                   f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
