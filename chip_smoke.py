@@ -10,7 +10,10 @@ Phases (each raises on failure):
    registers and spills;
 2. K1 (flash attention, CUDA) against its plain PyTorch version on the card
    at the serving prefill shape and at GQA, MQA, non-causal, small and
-   unequal head-dim and fp32 shapes, and its time beside the plain version,
+   unequal head-dim and fp32 shapes, and at the edges of its tensor-core
+   tilings (S one under and over a 64-row tile, hd 8 and 40, hd_v 256, MLA's
+   192/128 at S 1024, GQA 4:1 at the serving shape), each with the tiling
+   it ran; and its time beside the plain version,
    ``F.scaled_dot_product_attention`` (a yardstick only) and its bound;
 3. on a small input (the smoke config, fp32), the one-call prefill through
    K1 against token-by-token decode on the plain path;
@@ -18,7 +21,10 @@ Phases (each raises on failure):
    4 requests, prompt 1024, 32 generated tokens; the prompt prefills in one
    call through K1 (30 launches, one per layer), decode runs the plain
    path (0 launches); the kernel-path prefill logits are held against the
-   plain bf16 path's and an fp32 reference's on the same weights;
+   plain bf16 path's and an fp32 reference's on the same weights; each
+   serving phase (4, 7, 10) warms up with a short request and one prefill
+   of the full prompts (which loads the kernels only full-size shapes
+   pick), prints that prefill's time, and times TTFT on the next;
 5. K2 (the SSD intra-chunk term, CUDA) against its plain PyTorch version on
    the card at the mamba2-130m serving prefill shape, Q 8, a prompt
    shorter than a chunk, two groups of two heads, a slow decay, in bf16
@@ -39,13 +45,14 @@ Phases (each raises on failure):
    are reported against an fp32 model on the same weights (bf16 serving
    is judged end to end at phase 6's 2 × 512, and K2's wrapper at this
    shape in phase 5);
-8. K3 (the grouped matmul of the MoE experts, CUDA, tensor cores in bf16)
-   against its plain PyTorch version on the card at the four olmoe-1b-7b
-   serving shapes (prefill and decode, x@w_gate / x@w_in and h@w_out) in
-   bf16, at the prefill and decode shapes in fp32, and at the three shapes
-   of tests/test_kernels.py in both types; its time at the four serving
-   shapes beside the plain version, ``torch.bmm`` (a yardstick only) and
-   its bound;
+8. K3 (the grouped matmul of the MoE experts, CUDA, wgmma fed by TMA in
+   bf16) against its plain PyTorch version on the card at the four
+   olmoe-1b-7b serving shapes (prefill and decode, x@w_gate / x@w_in and
+   h@w_out) in bf16, at the prefill and decode shapes in fp32, at the three
+   shapes of tests/test_kernels.py in both types, and at the edges of its
+   two bf16 tilings (C 16, 24, 64, 72, 136, 648; d 136; f 72), each with
+   the tiling it ran; its time at the four serving shapes beside the plain
+   version, ``torch.bmm`` (a yardstick only) and its bound;
 9. on a small input (the olmoe smoke config, fp32, nothing dropped), the
    one-call prefill through K1 and K3 against token-by-token decode on the
    plain attention path;
@@ -205,6 +212,20 @@ CASES = [
     Case("hd 16", 2, 200, 4, 2, 16, 16, True, torch.bfloat16),
     Case("hd 24 / hd_v 16", 2, 64, 4, 4, 24, 16, True, torch.bfloat16),
     Case("hd 192 / hd_v 128", 1, 256, 4, 4, 192, 128, True, torch.bfloat16),
+    # the tensor-core tilings' edges: S = T one under and over a 64-row q
+    # and KV tile; head dims that pad to the MMA's k; the widest hd_v; MLA's
+    # 192/128 at a prompt's length; GQA 4:1 at the serving shape
+    Case("S 127", 2, 127, 4, 4, 128, 128, True, torch.bfloat16),
+    Case("S 129", 2, 129, 4, 2, 128, 128, True, torch.bfloat16),
+    Case("S 129, non-causal", 2, 129, 4, 4, 64, 64, False, torch.bfloat16),
+    Case("hd 8", 2, 200, 4, 2, 8, 8, True, torch.bfloat16),
+    Case("hd 40", 2, 200, 4, 4, 40, 40, True, torch.bfloat16),
+    Case("hd 256 / hd_v 256", 2, 300, 4, 2, 256, 256, True, torch.bfloat16),
+    Case("hd 64 / hd_v 256", 1, 200, 4, 4, 64, 256, False, torch.bfloat16),
+    Case("hd 192 / hd_v 128, S 1024", 1, 1024, 16, 16, 192, 128, True,
+         torch.bfloat16),
+    Case("gqa 4:1, serving shape", SERVE_BATCH, SERVE_PROMPT, 32, 8, 128,
+         128, True, torch.bfloat16),
     Case("fp32", 2, 300, 4, 2, 128, 128, True, torch.float32),
     Case("fp32 hd 256, non-causal", 1, 130, 2, 1, 256, 256, False,
          torch.float32),
@@ -237,7 +258,19 @@ GMM_CASES = GMM_PATH + [
     dataclasses.replace(GMM_DECODE, name="decode, fp32", dtype=torch.float32),
 ] + [GmmCase(f"E{E} C{C} d{d} f{f}", E, C, d, f, dt)   # tests/test_kernels.py
      for E, C, d, f in ((2, 16, 32, 32), (4, 64, 128, 64), (3, 32, 96, 48))
-     for dt in (torch.bfloat16, torch.float32)]
+     for dt in (torch.bfloat16, torch.float32)] + [
+    # the two bf16 tilings' edges: C 16, 24 and 64 on the 64-row tiling
+    # (64 its last count), C 72 the first on the 128-row one; C one row
+    # group over a 128-row tile and over the prefill's capacity; d past a
+    # 64-deep step, f past a 64-wide half of the 128-wide tile
+    GmmCase("C 16", 8, 16, 2048, 1024, torch.bfloat16),
+    GmmCase("C 24", 8, 24, 2048, 1024, torch.bfloat16),
+    GmmCase("C 64", 8, 64, 2048, 1024, torch.bfloat16),
+    GmmCase("C 72", 8, 72, 2048, 1024, torch.bfloat16),
+    GmmCase("C 136", 8, 136, 1024, 2048, torch.bfloat16),
+    GmmCase("C 648", 4, 648, 2048, 1024, torch.bfloat16),
+    GmmCase("d 136", 4, 256, 136, 256, torch.bfloat16),
+    GmmCase("f 72", 4, 256, 512, 72, torch.bfloat16)]
 
 
 def sh(*cmd: str) -> str:
@@ -401,8 +434,9 @@ def phase_k1() -> dict:
             ok = math.isfinite(err) and err <= TOL[c.dtype]
             print(f"K1 {c.name:26s} B{c.B} S{c.S} H{c.H} K{c.K} "
                   f"hd{c.hd}/{c.hdv} {str(c.dtype)[6:]:8s} "
-                  f"causal={c.causal}: max|d| {err:.3e} "
-                  f"(tol {TOL[c.dtype]:.0e}) {'ok' if ok else 'FAIL'}")
+                  f"causal={c.causal} [{fa.tiling(c.hd, c.hdv, c.dtype)}]: "
+                  f"max|d| {err:.3e} (tol {TOL[c.dtype]:.0e}) "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K1 disagrees with its plain version "
                                      f"at {c.name}: {err}")
@@ -416,8 +450,9 @@ def phase_k1() -> dict:
             qt, kt, vt, is_causal=True))
     bound_ms, bound_by = attention_bound_ms(PREFILL)
     print(f"K1 at the prefill shape: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
-          f"sdpa (yardstick) {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
+          f"sdpa (yardstick) {library_ms:.4f} ms ({ms / library_ms:.2f}x); "
+          f"bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.2f}% of bound")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:30",
@@ -510,8 +545,19 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
 
     n_dec = gen - 1
     with torch.inference_mode():
-        # warm-up request (cuBLAS handles, allocator), not counted
+        # warm-up, not counted: a short request (cuBLAS handles, the
+        # allocator), then one prefill of the full prompts, which also
+        # loads, lazily, the kernels that only full-size shapes pick (on an
+        # NVIDIA H100 80GB HBM3 that loading took ~40 to ~220 ms of
+        # olmoe-1b-7b's first full-size prefill); its time is printed,
+        # TTFT is the next one
         serve.generate(model, prompts[:, :64], 2)
+        cache = model.init_cache(batch, prompt + gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.prefill(model, cache, prompts)
+        torch.cuda.synchronize()
+        first_prefill = time.perf_counter() - t0
         cache = model.init_cache(batch, prompt + gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -558,6 +604,8 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
           f"decode {batch * n_dec / decode_s:.1f} tokens/s, end to end "
           f"{batch * gen / (ttft + decode_s):.1f} generated tokens/s, peak "
           f"memory {peak / 2**30:.3f} GiB")
+    print(f"serve {cfg.name}: the first full-size prefill in this process "
+          f"(warm-up, not counted) {1e3 * first_prefill:.2f} ms")
     print("sample:", tokens[0, :16].tolist())
     return Served(model, prompts, logits[:, -1].float(),
                   {name: prefill_launches[name] + decode_launches[name]
@@ -770,7 +818,8 @@ def phase_k3() -> dict:
                       ).max().item()
             ok = (worst if c.dtype == torch.bfloat16 else scaled) <= 1.0
             print(f"K3 {c.name:26s} E{c.E} C{c.C} d{c.d} f{c.f} "
-                  f"{str(c.dtype)[6:]:8s}: max|d| {err:.3e}, max|want| "
+                  f"{str(c.dtype)[6:]:8s} [{gmm_kernel.tiling(c.C, c.dtype)}]"
+                  f": max|d| {err:.3e}, max|want| "
                   f"{scale:.3e}, worst |d| / (tol + tol |want|) {worst:.3f}, "
                   f"/ (tol max|want| + tol |want|) {scaled:.3f} (tol "
                   f"{tol:.0e}, judged by the "
@@ -793,7 +842,8 @@ def phase_k3() -> dict:
             ms, plain_ms, library_ms, bound_ms, bound_by = timed[c.name]
             print(f"K3 at the {c.name} shape (E{c.E} C{c.C} d{c.d} "
                   f"f{c.f}): {ms:.4f} ms; plain {plain_ms:.4f} ms; torch.bmm "
-                  f"(yardstick) {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"(yardstick) {library_ms:.4f} ms ({ms / library_ms:.2f}x); "
+                  f"bound {bound_ms:.4f} ms "
                   f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
             del x, w
     ms, plain_ms, library_ms, bound_ms, bound_by = timed[GMM_PREFILL.name]

@@ -15,21 +15,27 @@
 // Design.  The Pallas grid (E, C/block_c, f/block_f), with a fori_loop over
 // block_d inside each step, becomes one CUDA block per (f tile, C tile,
 // expert) that loops over d itself: blocks run in parallel and in no order,
-// so nothing is carried from one to the next.  Each step of the loop stages
-// a BM x BK tile of x and a BK x BN tile of w in shared memory with
-// cp.async, two stages deep, so the next tile is in flight while the
-// current one is multiplied; rows past C, columns past f and depth past d
-// are zero-filled by the copy itself.
-//  - bf16 runs on the tensor cores: mma.sync.aligned.m16n8k16 with bf16
-//    operands (fed by ldmatrix, w's tile transposed on the way) and fp32
-//    accumulators.  A bf16 x bf16 product is exact in fp32, so only the
-//    order of the fp32 sum differs from the plain version.  Two tilings:
-//    BM 128 x BN 128 x BK 32 with 8 warps of 64 x 32 for the prefill
-//    (C 640), and BM 16 x BN 128 x BK 64 with 4 warps of 16 x 32 for the
-//    decode step (C 8), where a 128-row tile would be 15/16 padding.
+// so nothing is carried from one to the next.
+//  - bf16 runs on Hopper's warpgroup MMA (wgmma.m64n128k16, bf16 operands
+//    read from shared memory by descriptor, fp32 accumulators in
+//    registers), fed by the Tensor Memory Accelerator.  One producer warp
+//    keeps a ring of four stages in flight: each stage is one TMA box of x
+//    (64 deep, K-major) and two 64-wide boxes of w (MN-major: w's rows are
+//    read with the transposed-B bit), all with the 128-byte swizzle, and a
+//    full/empty mbarrier pair hands it between the producer and the
+//    consumer warpgroups.  TMA zero-fills rows past C and depth past d;
+//    the epilogue masks rows past C and columns past f.  A bf16 x bf16
+//    product is exact in fp32, so only the order of the fp32 sum differs
+//    from the plain version.  Two tilings: 128 x 128 with two consumer
+//    warpgroups for C > 64 (the prefill, C 640), and 64 x 128 with one
+//    for C <= 64 (a decode step, C 8), where the weights' bytes bound the
+//    time and the deep ring keeps enough of them in flight.  The producer
+//    is a single warp, so no setmaxnreg: 90 registers a thread fit without
+//    it.  The tensor maps are encoded on the host at each launch (through
+//    cudaGetDriverEntryPointByVersion, so the build needs no -lcuda).
 //  - fp32 stays on the CUDA cores in full fp32 (never TF32, which keeps
-//    about three decimal digits): BM 64 x BN 64 x BK 16, 256 threads with a
-//    4 x 4 patch each.
+//    about three decimal digits): cp.async double-buffered tiles, BM 64 x
+//    BN 64 x BK 16, 256 threads with a 4 x 4 patch each.
 //
 // Bound.  At the olmoe-1b-7b prefill (4 x 1024 tokens, 64 experts top-8,
 // capacity 640, d 2048, expert d_ff 1024, bf16) one x@w_gate does
@@ -37,10 +43,15 @@
 // bf16 tensor-core peak, and moves 168 + 268 + 84 MB, 0.155 ms at
 // 3.35 TB/s: operations bound it.  At a decode step (C 8) the same product
 // is 2.1e9 FLOP but must read all 64 experts' weights, 268 MB, 0.080 ms:
-// bytes bound it.  mma.sync reaches a part of the peak that wgmma, fed by
-// TMA from a deeper ring, would raise; that is later work.
+// bytes bound it.  Each block still fills and drains its own ring and
+// writes its tile from registers; a persistent schedule (one block per SM
+// walking the tiles, the epilogue under the next tile's loads) is the next
+// step toward the operations bound.
+#include <cuda.h>   // CUtensorMap; the driver call is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -85,145 +96,6 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst,
     const bool valid = gr < n_rows && gc < n_cols;
     const T* g = valid ? src + static_cast<long long>(gr) * n_cols + gc : src;
     cp_async16(dst + r * LD + c, g, valid);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const unsigned (&a)[4],
-                                               unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ---------------------------------------------------------------------
-// bf16: tensor cores.  A block computes a BM x BN tile of out[e]; its warps
-// are laid out (BM/WM) x (BN/WN), each owning a WM x WN patch as
-// (WM/16) x (WN/8) m16n8 accumulator tiles.
-// ---------------------------------------------------------------------
-template <int BM, int BN, int BK, int WM, int WN>
-struct MmaTiling {
-  static constexpr int WARPS_N = BN / WN;
-  static constexpr int NT = 32 * (BM / WM) * WARPS_N;
-  static constexpr int MI = WM / 16;
-  static constexpr int NI = WN / 8;
-  static constexpr int LDA = BK + 8;     // +16 bytes: rows on other banks
-  static constexpr int LDB = BN + 8;
-  static_assert(BK % 16 == 0 && WN % 16 == 0 && WM % 16 == 0, "tiling");
-};
-
-template <int BM, int BN, int BK, int WM, int WN>
-__global__ void __launch_bounds__(MmaTiling<BM, BN, BK, WM, WN>::NT)
-    gmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w,
-                   __nv_bfloat16* __restrict__ out, int C, int d, int f) {
-  using Tl = MmaTiling<BM, BN, BK, WM, WN>;
-  constexpr int NT = Tl::NT, MI = Tl::MI, NI = Tl::NI;
-  constexpr int LDA = Tl::LDA, LDB = Tl::LDB;
-  __shared__ __align__(16) __nv_bfloat16 As[2][BM * LDA];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][BK * LDB];
-
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const __nv_bfloat16* xe = x + static_cast<long long>(e) * C * d;
-  const __nv_bfloat16* we = w + static_cast<long long>(e) * d * f;
-  __nv_bfloat16* oe = out + static_cast<long long>(e) * C * f;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm0 = (warp / Tl::WARPS_N) * WM;
-  const int wn0 = (warp % Tl::WARPS_N) * WN;
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  const int nk = (d + BK - 1) / BK;
-  load_tile<__nv_bfloat16, BM, BK, LDA, NT>(As[0], xe, C, d, m0, 0);
-  load_tile<__nv_bfloat16, BK, BN, LDB, NT>(Bs[0], we, d, f, 0, n0);
-  cp_async_commit();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile<__nv_bfloat16, BM, BK, LDA, NT>(As[s ^ 1], xe, C, d, m0,
-                                                (kt + 1) * BK);
-      load_tile<__nv_bfloat16, BK, BN, LDB, NT>(Bs[s ^ 1], we, d, f,
-                                                (kt + 1) * BK, n0);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned a[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        ldmatrix_x4(a[i], &As[s][(wm0 + i * 16 + (lane & 15)) * LDA + kk +
-                                 (lane >> 4) * 8]);
-#pragma unroll
-      for (int j = 0; j < NI; j += 2) {
-        // two n8 tiles: matrices (k 0-7, n 0-7), (k 8-15, n 0-7),
-        // (k 0-7, n 8-15), (k 8-15, n 8-15), transposed into B fragments
-        unsigned b[4];
-        ldmatrix_x4_trans(b, &Bs[s][(kk + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                        * LDB +
-                                    wn0 + j * 8 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          mma_bf16_16816(acc[i][j], a[i], b[0], b[1]);
-          mma_bf16_16816(acc[i][j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();    // the stage just read is the next one written
-  }
-
-  // accumulator tile (16 x 8): this lane holds rows g and g + 8, columns
-  // 2t and 2t + 1; f is a multiple of 8, so a tile is in or out whole
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-#pragma unroll
-    for (int j = 0; j < NI; ++j) {
-      const int col = n0 + wn0 + j * 8 + 2 * t;
-      if (col >= f) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm0 + i * 16 + g + 8 * h;
-        if (row < C)
-          *reinterpret_cast<__nv_bfloat162*>(
-              &oe[static_cast<long long>(row) * f + col]) =
-              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
   }
 }
 
@@ -299,15 +171,262 @@ __global__ void __launch_bounds__(FNT)
   }
 }
 
-template <int BM, int BN, int BK, int WM, int WN>
-cudaError_t launch_mma(const void* x, const void* w, void* out, int E, int C,
-                       int d, int f, cudaStream_t stream) {
-  const dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
-  gmm_mma_kernel<BM, BN, BK, WM, WN>
-      <<<grid, MmaTiling<BM, BN, BK, WM, WN>::NT, 0, stream>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const __nv_bfloat16*>(w),
-          static_cast<__nv_bfloat16*>(out), C, d, f);
+// ---------------------------------------------------------------------
+// bf16: wgmma fed by TMA.  A block computes a 64 CONS x 128 tile of out[e]
+// with CONS consumer warpgroups (64 rows each, m64n128k16) and one
+// producer warp that keeps a ring of STAGES x (x tile 64 CONS x 64, w tile
+// 64 x 128) in flight; full/empty mbarriers hand each stage over.
+// ---------------------------------------------------------------------
+// CONS consumer warpgroups (64 rows of the tile each) and STAGES ring
+// stages; the tile is 64 CONS x 128, each step 64 deep
+template <int CONS, int STAGES>
+struct WgTiling {
+  static constexpr int BM = 64 * CONS, BN = 128, BK = 64;
+  static constexpr int NT = 128 * CONS + 32;     // + the producer warp
+  static constexpr int A_BYTES = BM * BK * 2;    // one box {64, BM}
+  static constexpr int B_HALF = BK * 64 * 2;     // one box {64, 64}, 8 KB
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_HALF;
+  // the ring, 1024-byte aligned for the 128-byte swizzle, then 2 x STAGES
+  // barriers
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 16 * STAGES;
+};
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 3-d tensor map into shared memory, completing on `bar`;
+// what lies outside the tensor arrives as zeros
+__device__ __forceinline__ void tma_load_3d(unsigned dst,
+                                            const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D[64 x 128] (fp32, this warpgroup's registers) += A · B: A K-major and
+// B MN-major (w's rows, imm-trans-b 1), both read by descriptor
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int CONS, int STAGES>
+__global__ void __launch_bounds__(WgTiling<CONS, STAGES>::NT, 2)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw,
+                     __nv_bfloat16* __restrict__ out, int C, int d, int f) {
+  using Tl = WgTiling<CONS, STAGES>;
+  constexpr int BM = Tl::BM, BN = Tl::BN, BK = Tl::BK;
+  constexpr int A_BYTES = Tl::A_BYTES, B_HALF = Tl::B_HALF;
+  constexpr int STAGE_BYTES = Tl::STAGE_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned ring = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const unsigned bars = ring + STAGES * STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (d + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);                  // the producer's expect_tx
+      mbar_init(empty(s), 4 * CONS);          // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * CONS) {                     // producer
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES, use = kt / STAGES;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+        mbar_expect_tx(full(s), STAGE_BYTES);
+        const unsigned a = ring + s * STAGE_BYTES, b = a + A_BYTES;
+        tma_load_3d(a, &tx, full(s), kt * BK, m0, e);
+        tma_load_3d(b, &tw, full(s), n0, kt * BK, e);
+        tma_load_3d(b + B_HALF, &tw, full(s), n0 + 64, kt * BK, e);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wgi: rows 64 wgi .. 64 wgi + 63 of the tile
+  const int wgi = warp / 4;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full(s), (kt / STAGES) & 1);
+    const unsigned a = ring + s * STAGE_BYTES + wgi * (A_BYTES / CONS);
+    const unsigned b = ring + s * STAGE_BYTES + A_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k) {
+      // x: K-major, 128-byte rows; a k16 step is 32 bytes along the row,
+      // 8-row groups 1024 bytes apart.  w: MN-major, a k16 step is 16 rows
+      // of 128 bytes; 8-row groups 1024 bytes apart, the two 64-wide
+      // halves of n B_HALF apart.
+      wgmma_m64n128k16(acc, sw128_desc(a + 32 * k, 16, 1024),
+                       sw128_desc(b + 2048 * k, B_HALF, 1024));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // accumulator: this lane holds rows 16 (warp % 4) + g and + 8, columns
+  // 8 j + 2 t and + 1; f is a multiple of 8, so an n8 tile is in or out
+  const int g = lane >> 2, t = lane & 3;
+  __nv_bfloat16* oe = out + static_cast<long long>(e) * C * f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (col >= f) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 64 * wgi + 16 * (warp % 4) + g + 8 * h;
+      if (row < C)
+        *reinterpret_cast<__nv_bfloat162*>(
+            &oe[static_cast<long long>(row) * f + col]) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 [n2, n1, n0] tensor (n0 contiguous) as a 3-d map of boxes
+// {box0, box1, 1}, 128-byte swizzle, zeros outside
+bool encode_3d(CUtensorMap* map, EncodeTiled fn, const void* base,
+               uint64_t n0, uint64_t n1, uint64_t n2, unsigned box0,
+               unsigned box1) {
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {n0 * 2, n0 * n1 * 2};    // bytes
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int CONS, int STAGES>
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E,
+                         int C, int d, int f, cudaStream_t stream) {
+  using Tl = WgTiling<CONS, STAGES>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
+    return cudaErrorMisalignedAddress;
+  CUtensorMap tx, tw;
+  if (!encode_3d(&tx, fn, x, d, C, E, 64, Tl::BM) ||
+      !encode_3d(&tw, fn, w, f, d, E, 64, Tl::BK))
+    return cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_wgmma_kernel<CONS, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM_BYTES);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((f + Tl::BN - 1) / Tl::BN, (C + Tl::BM - 1) / Tl::BM, E);
+  gmm_wgmma_kernel<CONS, STAGES><<<grid, Tl::NT, Tl::SMEM_BYTES, stream>>>(
+      tx, tw, static_cast<__nv_bfloat16*>(out), C, d, f);
   return cudaGetLastError();
 }
 
@@ -318,14 +437,13 @@ cudaError_t launch_mma(const void* x, const void* w, void* out, int E, int C,
 extern "C" int gmm_fwd(const void* x, const void* w, void* out, int dtype,
                        int E, int C, int d, int f, void* stream) {
   if (E <= 0 || C <= 0 || d <= 0 || f <= 0 || C % 8 || d % 8 || f % 8 ||
-      E > 65535 || (C + 15) / 16 > 65535)
+      E > 65535 || (C + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return static_cast<int>(
-        C <= 16 ? launch_mma<16, 128, 64, 16, 32>(x, w, out, E, C, d, f, st)
-                : launch_mma<128, 128, 32, 64, 32>(x, w, out, E, C, d, f,
-                                                   st));
+        C <= 64 ? launch_wgmma<1, 4>(x, w, out, E, C, d, f, st)
+                : launch_wgmma<2, 4>(x, w, out, E, C, d, f, st));
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((f + FBN - 1) / FBN, (C + FBM - 1) / FBM, E);
   gmm_fma_kernel<<<grid, FNT, 0, st>>>(static_cast<const float*>(x),

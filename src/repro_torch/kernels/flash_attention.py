@@ -21,6 +21,29 @@ from repro_torch.kernels import nvcc as _nvcc
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+# the C interface of flash_attention_fwd: q, k, v, o; dtype, B, S, T, H, K,
+# hd, hdv; the 12 element strides; scale, causal, stream
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+# launch_bf16's tilings in the source, smallest first: (hd, hdv) padded
+# to, and m16 row tiles per warp (the q tile is 64 of them)
+TILINGS = ((32, 32, 1), (64, 64, 2), (128, 128, 2), (256, 128, 1),
+           (256, 256, 1))
+
+
+def tiling(hd: int, hdv: int, dtype: torch.dtype) -> str:
+    """The tiling the kernel runs for these head dims (mirrors
+    ``launch_bf16`` and ``launch_hdv`` in the source)."""
+    if dtype != torch.bfloat16:
+        return "fp32 CUDA cores, 64 x 64 tiles"
+    dk, dv, mi = next(t for t in TILINGS if hd <= t[0] and hdv <= t[1])
+    bq = 64 * mi
+    smem = 2 * (bq * (dk + 8) + 2 * 64 * (dk + 8) + 2 * 64 * (dv + 8))
+    return (f"mma.sync, q tile {bq}, hd/hdv padded to {dk}/{dv}, {smem} B "
+            f"dynamic shared memory")
 
 
 def build() -> _nvcc.Build:
@@ -32,9 +55,7 @@ def build() -> _nvcc.Build:
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -57,6 +78,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if d % 8 or not 0 < d <= MAX_HEAD_DIM:
             raise ValueError(f"{name} head dim {d} must be a multiple of 8 "
                              f"up to {MAX_HEAD_DIM}")
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+            raise ValueError(f"bf16 {name} must start on 16 bytes with "
+                             f"strides in multiples of 8 elements (the "
+                             f"kernel copies 16-byte rows), got strides "
+                             f"{t.stride()}")
     B, S, H, hd = q.shape
     if k.shape[0] != B or k.shape[-1] != hd or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
@@ -64,8 +91,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if H % k.shape[2]:
         raise ValueError(f"{H} query heads are not a multiple of "
                          f"{k.shape[2]} kv heads")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"batch {B} and heads {H} must be at most 65535")
+    if B > 65535 or H > 65535 or S > 65535 * 64:
+        raise ValueError(f"batch {B} and heads {H} must be at most 65535, "
+                         f"and S {S} at most {65535 * 64}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -18,6 +18,21 @@ from repro_torch.kernels import nvcc as _nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gmm.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the most rows per expert that take the 64-row tiling (gmm_fwd's switch)
+SMALL_C_MAX = 64
+# the C interface of gmm_fwd: x, w, out; dtype, E, C, d, f; stream
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def tiling(C: int, dtype: torch.dtype) -> str:
+    """The tiling the kernel runs for C rows per expert (mirrors
+    ``gmm_fwd`` in the source)."""
+    if dtype != torch.bfloat16:
+        return "fp32 CUDA cores, 64 x 64 x 16"
+    cons = 1 if C <= SMALL_C_MAX else 2
+    smem = 4 * (cons * 8192 + 16384) + 1024 + 64    # ring, alignment, barriers
+    return (f"wgmma {64 * cons} x 128 x 64, TMA ring of 4 stages, {smem} B "
+            f"dynamic shared memory")
 
 
 def build() -> _nvcc.Build:
@@ -29,8 +44,7 @@ def build() -> _nvcc.Build:
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
     fn = lib.gmm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     lib.gmm_error_string.argtypes = [ctypes.c_int]
     lib.gmm_error_string.restype = ctypes.c_char_p

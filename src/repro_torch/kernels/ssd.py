@@ -20,6 +20,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_STATE = 256
+# the C interface of ssd_intra_chunk_fwd: 8 pointers, 8 ints, 12 element
+# strides, stream
+ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
 
 
 def build() -> _nvcc.Build:
@@ -31,8 +35,7 @@ def build() -> _nvcc.Build:
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
     fn = lib.ssd_intra_chunk_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     lib.ssd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_error_string.restype = ctypes.c_char_p

@@ -51,6 +51,18 @@ def _inputs(B, S, H, K, hd, hdv, dtype, device):
     (1, 130, 4, 1, 16, 16, False, torch.bfloat16),    # MQA, hd 16
     (1, 96, 2, 2, 192, 128, True, torch.bfloat16),    # hd != hd_v
     (2, 200, 4, 2, 128, 128, True, torch.float32),
+    # the tensor-core tilings' edges: S one under and over a 64-row tile,
+    # hd that pads to the MMA's k, hd_v 256, MLA's 192/128 at S 1024, GQA
+    # 4:1 at the serving shape
+    (2, 127, 4, 4, 128, 128, True, torch.bfloat16),
+    (2, 129, 4, 2, 128, 128, True, torch.bfloat16),
+    (2, 129, 4, 4, 64, 64, False, torch.bfloat16),
+    (2, 200, 4, 2, 8, 8, True, torch.bfloat16),
+    (2, 200, 4, 4, 40, 40, True, torch.bfloat16),
+    (2, 300, 4, 2, 256, 256, True, torch.bfloat16),
+    (1, 200, 4, 4, 64, 256, False, torch.bfloat16),
+    (1, 1024, 16, 16, 192, 128, True, torch.bfloat16),
+    (4, 1024, 32, 8, 128, 128, True, torch.bfloat16),
 ])
 def test_kernel_matches_plain(cuda, B, S, H, K, hd, hdv, causal, dtype):
     q, k, v = _inputs(B, S, H, K, hd, hdv, dtype, cuda)
@@ -190,6 +202,16 @@ def test_mamba2_serving_runs_k2_once_per_layer_in_prefill(cuda):
     (64, 640, 1024, 2048, torch.bfloat16),  # olmoe prefill h@w_out
     (5, 200, 136, 72, torch.float32),       # ragged C, d and f tiles
     (5, 200, 136, 72, torch.bfloat16),
+    # the bf16 tilings' edges: C 16, 24 and 64 (64-row tiles), 72, 136
+    # and 648 (128-row tiles); d 136; f 72
+    (8, 16, 2048, 1024, torch.bfloat16),
+    (8, 24, 2048, 1024, torch.bfloat16),
+    (8, 64, 2048, 1024, torch.bfloat16),
+    (8, 72, 2048, 1024, torch.bfloat16),
+    (8, 136, 1024, 2048, torch.bfloat16),
+    (4, 648, 2048, 1024, torch.bfloat16),
+    (4, 256, 136, 256, torch.bfloat16),
+    (4, 256, 512, 72, torch.bfloat16),
 ])
 def test_grouped_matmul_matches_plain(cuda, E, C, d, f, dtype):
     rng = np.random.default_rng(0)

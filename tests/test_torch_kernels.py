@@ -1,9 +1,13 @@
-"""K1 (flash attention): the port's wrapper against the JAX package's.
+"""K1 (flash attention): the port's wrapper against the JAX package's; and
+the C interfaces of K1, K2 and K3 against their ctypes bindings.
 
 On the CPU the port's wrapper runs K1's plain version; JAX runs the Pallas
 kernel in interpret mode, as ``tests/test_kernels.py`` does.  The CUDA
 kernel itself is tested on the card by ``tests/test_torch_gpu.py``.
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,8 +16,10 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import gmm as tgmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd as tssd
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -92,3 +98,55 @@ def test_launcher_takes_only_cuda_tensors():
     q = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# The C interfaces, read from the sources: a mismatch between a launch
+# function's parameters and the ctypes argtypes its module sets would only
+# show as a crash on the card.  Nothing here builds.
+_C_KINDS = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+def _c_parameters(source, name):
+    """The ctypes kinds of ``extern "C" int name(...)``'s parameters."""
+    text = source.read_text()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    assert m, f"no extern \"C\" int {name}(...) in {source.name}"
+    kinds = []
+    for param in m.group(1).split(","):
+        ctype = re.sub(r"\s+", " ", param).strip().rsplit(" ", 1)[0]
+        ctype = ctype.replace(" *", "*")
+        assert ctype in _C_KINDS, f"{name}: unknown parameter type {ctype!r}"
+        kinds.append(_C_KINDS[ctype])
+    return kinds
+
+
+@pytest.mark.parametrize("module,function", [
+    (tfa, "flash_attention_fwd"),
+    (tssd, "ssd_intra_chunk_fwd"),
+    (tgmm, "gmm_fwd"),
+])
+def test_c_interface_matches_argtypes(module, function):
+    assert _c_parameters(module.SOURCE, function) == list(module.ARGTYPES)
+
+
+def test_tiling_names_mirror_the_sources_dispatch():
+    """``tiling`` in the Python modules names what the C dispatch runs."""
+    fa_src = tfa.SOURCE.read_text()
+    for dk, dv, mi in tfa.TILINGS:
+        assert f"launch_mma<{dk}, {dv}, {mi}>" in fa_src
+        assert (f"q tile {64 * mi}, hd/hdv padded to {dk}/{dv}"
+                in tfa.tiling(dk, dv, torch.bfloat16))
+    assert fa_src.count("return launch_mma<") == len(tfa.TILINGS)
+    assert "padded to 256/128" in tfa.tiling(192, 128, torch.bfloat16)
+    assert "padded to 32/32" in tfa.tiling(8, 8, torch.bfloat16)
+    assert "CUDA cores" in tfa.tiling(128, 128, torch.float32)
+    gmm_src = tgmm.SOURCE.read_text()
+    assert f"C <= {tgmm.SMALL_C_MAX} ? launch_wgmma<1, 4>" in gmm_src
+    assert ": launch_wgmma<2, 4>" in gmm_src
+    assert tgmm.tiling(tgmm.SMALL_C_MAX, torch.bfloat16).startswith(
+        "wgmma 64 x 128")
+    assert tgmm.tiling(tgmm.SMALL_C_MAX + 8, torch.bfloat16).startswith(
+        "wgmma 128 x 128")
