@@ -52,7 +52,9 @@ Phases (each raises on failure):
    shapes of tests/test_kernels.py in both types, and at the edges of its
    two bf16 tilings (C 16, 24, 64, 72, 136, 648; d 136; f 72), each with
    the tiling it ran; its time at the four serving shapes beside the plain
-   version, ``torch.bmm`` (a yardstick only) and its bound;
+   version, ``torch.bmm`` (a yardstick only) and its bound, and the host
+   time per call of its wrapper and of ``torch.bmm`` (where the wrapper's
+   nears the kernel's time, that timing measures the host);
 9. on a small input (the olmoe smoke config, fp32, nothing dropped), the
    one-call prefill through K1 and K3 against token-by-token decode on the
    plain attention path;
@@ -291,6 +293,20 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call of fn, enqueued back to back without a
+    synchronise (the device works behind): when it nears the device time
+    per call, a CUDA-event timing of the same calls measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
 
 
 def attention_inputs(c: Case, gen: torch.Generator):
@@ -844,7 +860,10 @@ def phase_k3() -> dict:
                   f"f{c.f}): {ms:.4f} ms; plain {plain_ms:.4f} ms; torch.bmm "
                   f"(yardstick) {library_ms:.4f} ms ({ms / library_ms:.2f}x); "
                   f"bound {bound_ms:.4f} ms "
-                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
+                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound; host "
+                  f"time per call: ops.grouped_matmul "
+                  f"{host_us(lambda: ops.grouped_matmul(x, w)):.1f} us, "
+                  f"torch.bmm {host_us(lambda: torch.bmm(x, w)):.1f} us")
             del x, w
     ms, plain_ms, library_ms, bound_ms, bound_by = timed[GMM_PREFILL.name]
     return {"name": "gmm_fwd", "route": "cuda",
