@@ -564,7 +564,7 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
         # warm-up, not counted: a short request (cuBLAS handles, the
         # allocator), then one prefill of the full prompts, which also
         # loads, lazily, the kernels that only full-size shapes pick (on an
-        # NVIDIA H100 80GB HBM3 that loading took ~40 to ~220 ms of
+        # NVIDIA H100 80GB HBM3 that loading took ~30 to ~220 ms of
         # olmoe-1b-7b's first full-size prefill); its time is printed,
         # TTFT is the next one
         serve.generate(model, prompts[:, :64], 2)
