@@ -262,9 +262,9 @@ GMM_CASES = GMM_PATH + [
      for E, C, d, f in ((2, 16, 32, 32), (4, 64, 128, 64), (3, 32, 96, 48))
      for dt in (torch.bfloat16, torch.float32)] + [
     # the two bf16 tilings' edges: C 16, 24 and 64 on the 64-row tiling
-    # (64 its last count), C 72 the first on the 128-row one; C one row
+    # (64 its last count), C 72 the first on the 128 x 256 one; C one row
     # group over a 128-row tile and over the prefill's capacity; d past a
-    # 64-deep step, f past a 64-wide half of the 128-wide tile
+    # 64-deep step, f past the first 64-wide box of a tile
     GmmCase("C 16", 8, 16, 2048, 1024, torch.bfloat16),
     GmmCase("C 24", 8, 24, 2048, 1024, torch.bfloat16),
     GmmCase("C 64", 8, 64, 2048, 1024, torch.bfloat16),

@@ -13,25 +13,30 @@
 // matrix).
 //
 // Design.  The Pallas grid (E, C/block_c, f/block_f), with a fori_loop over
-// block_d inside each step, becomes one CUDA block per (f tile, C tile,
-// expert) that loops over d itself: blocks run in parallel and in no order,
-// so nothing is carried from one to the next.
-//  - bf16 runs on Hopper's warpgroup MMA (wgmma.m64n128k16, bf16 operands
-//    read from shared memory by descriptor, fp32 accumulators in
-//    registers), fed by the Tensor Memory Accelerator.  One producer warp
-//    keeps a ring of four stages in flight: each stage is one TMA box of x
-//    (64 deep, K-major) and two 64-wide boxes of w (MN-major: w's rows are
-//    read with the transposed-B bit), all with the 128-byte swizzle, and a
+// block_d inside each step, becomes CUDA blocks that each take whole
+// (expert, C tile, f tile) tiles and loop over d themselves: blocks run in
+// parallel and in no order, so nothing is carried from one to the next.
+//  - bf16 runs on Hopper's warpgroup MMA (wgmma, bf16 operands read from
+//    shared memory by descriptor, fp32 accumulators in registers), fed by
+//    the Tensor Memory Accelerator.  One producer warp keeps a ring of
+//    four stages in flight: each stage is one TMA box of x (64 deep,
+//    K-major) and 64-wide boxes of w (MN-major: w's rows are read with
+//    the transposed-B bit), all with the 128-byte swizzle, and a
 //    full/empty mbarrier pair hands it between the producer and the
 //    consumer warpgroups.  TMA zero-fills rows past C and depth past d;
 //    the epilogue masks rows past C and columns past f.  A bf16 x bf16
 //    product is exact in fp32, so only the order of the fp32 sum differs
-//    from the plain version.  Two tilings: 128 x 128 with two consumer
-//    warpgroups for C > 64 (the prefill, C 640), and 64 x 128 with one
-//    for C <= 64 (a decode step, C 8), where the weights' bytes bound the
-//    time and the deep ring keeps enough of them in flight.  The producer
-//    is a single warp, so no setmaxnreg: 90 registers a thread fit without
-//    it.  The tensor maps are encoded on the host at each launch (through
+//    from the plain version.  Two tilings, picked by C: for C > 64 (the
+//    prefill, C 640) 128 x 256 tiles, two consumer warpgroups of
+//    m64n256k16 (128 accumulator registers a thread), one block per
+//    resident slot walking the tiles (persistent: the ring runs on across
+//    a block's tiles, so the producer loads the next tile while the
+//    consumers write this one); for C <= 64 (a decode step, C 8) 64 x 128
+//    tiles, one consumer warpgroup of m64n128k16 and one block per tile,
+//    where the weights' bytes bound the time and the deep ring keeps
+//    enough of them in flight.  The producer is a single warp, so no
+//    setmaxnreg: 94 and 160 registers a thread fit without it.  The
+//    tensor maps are encoded on the host at each launch (through
 //    cudaGetDriverEntryPointByVersion, so the build needs no -lcuda).
 //  - fp32 stays on the CUDA cores in full fp32 (never TF32, which keeps
 //    about three decimal digits): cp.async double-buffered tiles, BM 64 x
@@ -43,10 +48,10 @@
 // bf16 tensor-core peak, and moves 168 + 268 + 84 MB, 0.155 ms at
 // 3.35 TB/s: operations bound it.  At a decode step (C 8) the same product
 // is 2.1e9 FLOP but must read all 64 experts' weights, 268 MB, 0.080 ms:
-// bytes bound it.  Each block still fills and drains its own ring and
-// writes its tile from registers; a persistent schedule (one block per SM
-// walking the tiles, the epilogue under the next tile's loads) is the next
-// step toward the operations bound.
+// bytes bound it.  The tile is still written from registers with 4-byte
+// stores; staging it for a TMA store, and consumer warpgroups taking turns
+// (one writing its tile while the other multiplies), are the next steps
+// toward the operations bound.
 #include <cuda.h>   // CUtensorMap; the driver call is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -172,20 +177,20 @@ __global__ void __launch_bounds__(FNT)
 }
 
 // ---------------------------------------------------------------------
-// bf16: wgmma fed by TMA.  A block computes a 64 CONS x 128 tile of out[e]
-// with CONS consumer warpgroups (64 rows each, m64n128k16) and one
+// bf16: wgmma fed by TMA.  A block computes 64 CONS x BN tiles of out[e]
+// with CONS consumer warpgroups (64 rows each, m64nBNk16) and one
 // producer warp that keeps a ring of STAGES x (x tile 64 CONS x 64, w tile
-// 64 x 128) in flight; full/empty mbarriers hand each stage over.
+// 64 x BN) in flight; full/empty mbarriers hand each stage over.
 // ---------------------------------------------------------------------
-// CONS consumer warpgroups (64 rows of the tile each) and STAGES ring
-// stages; the tile is 64 CONS x 128, each step 64 deep
-template <int CONS, int STAGES>
+// CONS consumer warpgroups (64 rows of the tile each), a tile BN wide
+// (128 or 256: BN / 64 boxes of w), STAGES ring stages 64 deep
+template <int CONS, int STAGES, int BN_>
 struct WgTiling {
-  static constexpr int BM = 64 * CONS, BN = 128, BK = 64;
+  static constexpr int BM = 64 * CONS, BN = BN_, BK = 64;
   static constexpr int NT = 128 * CONS + 32;     // + the producer warp
   static constexpr int A_BYTES = BM * BK * 2;    // one box {64, BM}
   static constexpr int B_HALF = BK * 64 * 2;     // one box {64, 64}, 8 KB
-  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_HALF;
+  static constexpr int STAGE_BYTES = A_BYTES + (BN / 64) * B_HALF;
   // the ring, 1024-byte aligned for the 128-byte swizzle, then 2 x STAGES
   // barriers
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 16 * STAGES;
@@ -278,12 +283,75 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-template <int CONS, int STAGES>
-__global__ void __launch_bounds__(WgTiling<CONS, STAGES>::NT, 2)
+// D[64 x 256] (fp32, this warpgroup's registers) += A · B, as above
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (BN == 128)
+    wgmma_m64n128k16(d, da, db);
+  else
+    wgmma_m64n256k16(d, da, db);
+}
+
+// Each block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... (one
+// tile per block when the grid covers them all); a tile is (expert, C
+// tile, f tile), the f tile fastest.  The ring and its phases run on
+// across a block's tiles, so the producer loads the next tile while the
+// consumers write this one.
+template <int CONS, int STAGES, int BN_>
+__global__ void __launch_bounds__(WgTiling<CONS, STAGES, BN_>::NT, 1)
     gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap tw,
-                     __nv_bfloat16* __restrict__ out, int C, int d, int f) {
-  using Tl = WgTiling<CONS, STAGES>;
+                     __nv_bfloat16* __restrict__ out, int E, int C, int d,
+                     int f) {
+  using Tl = WgTiling<CONS, STAGES, BN_>;
   constexpr int BM = Tl::BM, BN = Tl::BN, BK = Tl::BK;
   constexpr int A_BYTES = Tl::A_BYTES, B_HALF = Tl::B_HALF;
   constexpr int STAGE_BYTES = Tl::STAGE_BYTES;
@@ -293,8 +361,8 @@ __global__ void __launch_bounds__(WgTiling<CONS, STAGES>::NT, 2)
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
 
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int n_n = (f + BN - 1) / BN, n_m = (C + BM - 1) / BM;
+  const int n_tiles = E * n_m * n_n;
   const int nk = (d + BK - 1) / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -309,59 +377,73 @@ __global__ void __launch_bounds__(WgTiling<CONS, STAGES>::NT, 2)
 
   if (warp == 4 * CONS) {                     // producer
     if (lane == 0) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % STAGES, use = kt / STAGES;
-        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
-        mbar_expect_tx(full(s), STAGE_BYTES);
-        const unsigned a = ring + s * STAGE_BYTES, b = a + A_BYTES;
-        tma_load_3d(a, &tx, full(s), kt * BK, m0, e);
-        tma_load_3d(b, &tw, full(s), n0, kt * BK, e);
-        tma_load_3d(b + B_HALF, &tw, full(s), n0 + 64, kt * BK, e);
+      int it = 0;                             // stages filled so far
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int n0 = (tile % n_n) * BN, m0 = (tile / n_n % n_m) * BM;
+        const int e = tile / (n_n * n_m);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES, use = it / STAGES;
+          if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+          mbar_expect_tx(full(s), STAGE_BYTES);
+          const unsigned a = ring + s * STAGE_BYTES, b = a + A_BYTES;
+          tma_load_3d(a, &tx, full(s), kt * BK, m0, e);
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h)
+            tma_load_3d(b + h * B_HALF, &tw, full(s), n0 + 64 * h, kt * BK,
+                        e);
+        }
       }
     }
     return;
   }
 
-  // consumer warpgroup wgi: rows 64 wgi .. 64 wgi + 63 of the tile
+  // consumer warpgroup wgi: rows 64 wgi .. 64 wgi + 63 of each tile
   const int wgi = warp / 4;
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % STAGES;
-    mbar_wait(full(s), (kt / STAGES) & 1);
-    const unsigned a = ring + s * STAGE_BYTES + wgi * (A_BYTES / CONS);
-    const unsigned b = ring + s * STAGE_BYTES + A_BYTES;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int k = 0; k < BK / 16; ++k) {
-      // x: K-major, 128-byte rows; a k16 step is 32 bytes along the row,
-      // 8-row groups 1024 bytes apart.  w: MN-major, a k16 step is 16 rows
-      // of 128 bytes; 8-row groups 1024 bytes apart, the two 64-wide
-      // halves of n B_HALF apart.
-      wgmma_m64n128k16(acc, sw128_desc(a + 32 * k, 16, 1024),
-                       sw128_desc(b + 2048 * k, B_HALF, 1024));
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    if (lane == 0) mbar_arrive(empty(s));
-  }
-
-  // accumulator: this lane holds rows 16 (warp % 4) + g and + 8, columns
-  // 8 j + 2 t and + 1; f is a multiple of 8, so an n8 tile is in or out
   const int g = lane >> 2, t = lane & 3;
-  __nv_bfloat16* oe = out + static_cast<long long>(e) * C * f;
+  int it = 0;                                 // stages consumed so far
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int n0 = (tile % n_n) * BN, m0 = (tile / n_n % n_m) * BM;
+    const int e = tile / (n_n * n_m);
+    float acc[BN / 2];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = n0 + 8 * j + 2 * t;
-    if (col >= f) continue;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(full(s), (it / STAGES) & 1);
+      const unsigned a = ring + s * STAGE_BYTES + wgi * (A_BYTES / CONS);
+      const unsigned b = ring + s * STAGE_BYTES + A_BYTES;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + 64 * wgi + 16 * (warp % 4) + g + 8 * h;
-      if (row < C)
-        *reinterpret_cast<__nv_bfloat162*>(
-            &oe[static_cast<long long>(row) * f + col]) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      for (int k = 0; k < BK / 16; ++k) {
+        // x: K-major, 128-byte rows; a k16 step is 32 bytes along the
+        // row, 8-row groups 1024 bytes apart.  w: MN-major, a k16 step is
+        // 16 rows of 128 bytes; 8-row groups 1024 bytes apart, the 64-wide
+        // boxes along n B_HALF apart.
+        wgmma_tile<BN>(acc, sw128_desc(a + 32 * k, 16, 1024),
+                       sw128_desc(b + 2048 * k, B_HALF, 1024));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // accumulator: this lane holds rows 16 (warp % 4) + g and + 8,
+    // columns 8 j + 2 t and + 1; f is a multiple of 8, so an n8 tile is
+    // in or out whole
+    __nv_bfloat16* oe = out + static_cast<long long>(e) * C * f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (col >= f) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 64 * wgi + 16 * (warp % 4) + g + 8 * h;
+        if (row < C)
+          *reinterpret_cast<__nv_bfloat162*>(
+              &oe[static_cast<long long>(row) * f + col]) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
@@ -408,10 +490,12 @@ bool encode_3d(CUtensorMap* map, EncodeTiled fn, const void* base,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int CONS, int STAGES>
+// PERSISTENT: one block per resident slot (SMs x blocks an SM holds),
+// each walking its share of the tiles; else one block per tile
+template <int CONS, int STAGES, int BN, bool PERSISTENT>
 cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E,
                          int C, int d, int f, cudaStream_t stream) {
-  using Tl = WgTiling<CONS, STAGES>;
+  using Tl = WgTiling<CONS, STAGES, BN>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
@@ -420,13 +504,29 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E,
   if (!encode_3d(&tx, fn, x, d, C, E, 64, Tl::BM) ||
       !encode_3d(&tw, fn, w, f, d, E, 64, Tl::BK))
     return cudaErrorInvalidValue;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      gmm_wgmma_kernel<CONS, STAGES>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM_BYTES);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((f + Tl::BN - 1) / Tl::BN, (C + Tl::BM - 1) / Tl::BM, E);
-  gmm_wgmma_kernel<CONS, STAGES><<<grid, Tl::NT, Tl::SMEM_BYTES, stream>>>(
-      tx, tw, static_cast<__nv_bfloat16*>(out), C, d, f);
+  auto kernel = gmm_wgmma_kernel<CONS, STAGES, BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>(E) *
+                          ((C + Tl::BM - 1) / Tl::BM) *
+                          ((f + Tl::BN - 1) / Tl::BN);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  long long grid = tiles;
+  if (PERSISTENT) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, Tl::NT, Tl::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    const long long slots = static_cast<long long>(sms) * per_sm;
+    if (slots < grid) grid = slots;
+  }
+  kernel<<<static_cast<int>(grid), Tl::NT, Tl::SMEM_BYTES, stream>>>(
+      tx, tw, static_cast<__nv_bfloat16*>(out), E, C, d, f);
   return cudaGetLastError();
 }
 
@@ -442,8 +542,8 @@ extern "C" int gmm_fwd(const void* x, const void* w, void* out, int dtype,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return static_cast<int>(
-        C <= 64 ? launch_wgmma<1, 4>(x, w, out, E, C, d, f, st)
-                : launch_wgmma<2, 4>(x, w, out, E, C, d, f, st));
+        C <= 64 ? launch_wgmma<1, 4, 128, false>(x, w, out, E, C, d, f, st)
+                : launch_wgmma<2, 4, 256, true>(x, w, out, E, C, d, f, st));
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((f + FBN - 1) / FBN, (C + FBM - 1) / FBM, E);
   gmm_fma_kernel<<<grid, FNT, 0, st>>>(static_cast<const float*>(x),

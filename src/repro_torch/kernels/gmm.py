@@ -29,10 +29,11 @@ def tiling(C: int, dtype: torch.dtype) -> str:
     ``gmm_fwd`` in the source)."""
     if dtype != torch.bfloat16:
         return "fp32 CUDA cores, 64 x 64 x 16"
-    cons = 1 if C <= SMALL_C_MAX else 2
-    smem = 4 * (cons * 8192 + 16384) + 1024 + 64    # ring, alignment, barriers
-    return (f"wgmma {64 * cons} x 128 x 64, TMA ring of 4 stages, {smem} B "
-            f"dynamic shared memory")
+    if C <= SMALL_C_MAX:
+        return ("wgmma 64 x 128 x 64, a block per tile, TMA ring of 4 "
+                "stages, 99392 B dynamic shared memory")
+    return ("wgmma 128 x 256 x 64, persistent blocks, TMA ring of 4 stages, "
+            "197696 B dynamic shared memory")
 
 
 def build() -> _nvcc.Build:

@@ -202,8 +202,8 @@ def test_mamba2_serving_runs_k2_once_per_layer_in_prefill(cuda):
     (64, 640, 1024, 2048, torch.bfloat16),  # olmoe prefill h@w_out
     (5, 200, 136, 72, torch.float32),       # ragged C, d and f tiles
     (5, 200, 136, 72, torch.bfloat16),
-    # the bf16 tilings' edges: C 16, 24 and 64 (64-row tiles), 72, 136
-    # and 648 (128-row tiles); d 136; f 72
+    # the bf16 tilings' edges: C 16, 24 and 64 (64 x 128 tiles), 72, 136
+    # and 648 (128 x 256 tiles); d 136; f 72
     (8, 16, 2048, 1024, torch.bfloat16),
     (8, 24, 2048, 1024, torch.bfloat16),
     (8, 64, 2048, 1024, torch.bfloat16),

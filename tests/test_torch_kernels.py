@@ -144,9 +144,10 @@ def test_tiling_names_mirror_the_sources_dispatch():
     assert "padded to 32/32" in tfa.tiling(8, 8, torch.bfloat16)
     assert "CUDA cores" in tfa.tiling(128, 128, torch.float32)
     gmm_src = tgmm.SOURCE.read_text()
-    assert f"C <= {tgmm.SMALL_C_MAX} ? launch_wgmma<1, 4>" in gmm_src
-    assert ": launch_wgmma<2, 4>" in gmm_src
+    assert (f"C <= {tgmm.SMALL_C_MAX} ? launch_wgmma<1, 4, 128, false>"
+            in gmm_src)
+    assert ": launch_wgmma<2, 4, 256, true>" in gmm_src
     assert tgmm.tiling(tgmm.SMALL_C_MAX, torch.bfloat16).startswith(
-        "wgmma 64 x 128")
+        "wgmma 64 x 128 x 64, a block per tile")
     assert tgmm.tiling(tgmm.SMALL_C_MAX + 8, torch.bfloat16).startswith(
-        "wgmma 128 x 128")
+        "wgmma 128 x 256 x 64, persistent")
