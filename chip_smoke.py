@@ -860,8 +860,15 @@ def phase_k3() -> dict:
                   f"f{c.f}): {ms:.4f} ms; plain {plain_ms:.4f} ms; torch.bmm "
                   f"(yardstick) {library_ms:.4f} ms ({ms / library_ms:.2f}x); "
                   f"bound {bound_ms:.4f} ms "
-                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound; host "
-                  f"time per call: ops.grouped_matmul "
+                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
+            del x, w
+        # host time per call, after every device timing: run between two
+        # device timings, its 200-call bursts at full load slowed the next
+        # one, the kernel and its plain version alike
+        for c in GMM_PATH:
+            x, w = inputs(c)
+            print(f"K3 at the {c.name} shape: host time per call: "
+                  f"ops.grouped_matmul "
                   f"{host_us(lambda: ops.grouped_matmul(x, w)):.1f} us, "
                   f"torch.bmm {host_us(lambda: torch.bmm(x, w)):.1f} us")
             del x, w
