@@ -52,7 +52,7 @@
 // stores; staging it for a TMA store, and consumer warpgroups taking turns
 // (one writing its tile while the other multiplies), are the next steps
 // toward the operations bound.
-#include <cuda.h>   // CUtensorMap; the driver call is reached through the runtime
+#include <cuda.h>   // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
