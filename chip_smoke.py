@@ -22,9 +22,9 @@ Phases (each raises on failure):
    call through K1 (30 launches, one per layer), decode runs the plain
    path (0 launches); the kernel-path prefill logits are held against the
    plain bf16 path's and an fp32 reference's on the same weights; each
-   serving phase (4, 7, 10) warms up with a short request and one prefill
-   of the full prompts (which loads the kernels only full-size shapes
-   pick), prints that prefill's time, and times TTFT on the next;
+   serving phase (4, 7, 10) warms up with a short request, times TTFT on
+   the first full-size prefill, and prints a second prefill's time beside
+   it;
 5. K2 (the SSD intra-chunk term, CUDA) against its plain PyTorch version on
    the card at the mamba2-130m serving prefill shape, Q 8, a prompt
    shorter than a chunk, two groups of two heads, a slow decay, in bf16
@@ -53,8 +53,9 @@ Phases (each raises on failure):
    two bf16 tilings (C 16, 24, 64, 72, 136, 648; d 136; f 72), each with
    the tiling it ran; its time at the four serving shapes beside the plain
    version, ``torch.bmm`` (a yardstick only) and its bound, and the host
-   time per call of its wrapper and of ``torch.bmm`` (where the wrapper's
-   nears the kernel's time, that timing measures the host);
+   time per call of its wrapper, of its C launch function alone and of
+   ``torch.bmm`` (where the wrapper's nears the kernel's time, that timing
+   measures the host);
 9. on a small input (the olmoe smoke config, fp32, nothing dropped), the
    one-call prefill through K1 and K3 against token-by-token decode on the
    plain attention path;
@@ -561,19 +562,8 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
 
     n_dec = gen - 1
     with torch.inference_mode():
-        # warm-up, not counted: a short request (cuBLAS handles, the
-        # allocator), then one prefill of the full prompts, which also
-        # loads, lazily, the kernels that only full-size shapes pick (on an
-        # NVIDIA H100 80GB HBM3 that loading took ~30 to ~220 ms of
-        # olmoe-1b-7b's first full-size prefill); its time is printed,
-        # TTFT is the next one
+        # warm-up request (cuBLAS handles, allocator), not counted
         serve.generate(model, prompts[:, :64], 2)
-        cache = model.init_cache(batch, prompt + gen)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        serve.prefill(model, cache, prompts)
-        torch.cuda.synchronize()
-        first_prefill = time.perf_counter() - t0
         cache = model.init_cache(batch, prompt + gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -596,6 +586,14 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
         tokens = torch.cat([tok, rest], dim=1)
         last_logits, _ = model.decode_step(cache, rest[:, -1:],
                                            prompt + gen - 1)
+        # the same prefill again, on the cache left (attention rewrites
+        # rows 0..prompt, an SSM block starts from the state left, at the
+        # same cost): printed beside TTFT, which is the first full-size one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.prefill(model, cache, prompts)
+        torch.cuda.synchronize()
+        second_prefill = time.perf_counter() - t0
     bad = []
     for name in WRAPPERS:
         per_prefill, per_step = want.get(name, (0, 0))
@@ -620,8 +618,8 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
           f"decode {batch * n_dec / decode_s:.1f} tokens/s, end to end "
           f"{batch * gen / (ttft + decode_s):.1f} generated tokens/s, peak "
           f"memory {peak / 2**30:.3f} GiB")
-    print(f"serve {cfg.name}: the first full-size prefill in this process "
-          f"(warm-up, not counted) {1e3 * first_prefill:.2f} ms")
+    print(f"serve {cfg.name}: a second prefill of the same prompts "
+          f"{1e3 * second_prefill:.2f} ms (TTFT above: the first)")
     print("sample:", tokens[0, :16].tolist())
     return Served(model, prompts, logits[:, -1].float(),
                   {name: prefill_launches[name] + decode_launches[name]
@@ -865,13 +863,23 @@ def phase_k3() -> dict:
         # host time per call, after every device timing: run between two
         # device timings, its 200-call bursts at full load slowed the next
         # one, the kernel and its plain version alike
+        # (the C launch function alone, through ctypes into a preallocated
+        # output: what the wrapper's checks and allocation leave)
+        lib = gmm_kernel._library()
+        stream = torch.cuda.current_stream().cuda_stream
         for c in GMM_PATH:
             x, w = inputs(c)
+            out = torch.empty((c.E, c.C, c.f), dtype=c.dtype, device="cuda")
+            args = (x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    gmm_kernel._DTYPE_CODES[c.dtype], c.E, c.C, c.d, c.f,
+                    stream)
+            wrapper_us = host_us(lambda: ops.grouped_matmul(x, w))
+            c_us = host_us(lambda: lib.gmm_fwd(*args))
+            bmm_us = host_us(lambda: torch.bmm(x, w))
             print(f"K3 at the {c.name} shape: host time per call: "
-                  f"ops.grouped_matmul "
-                  f"{host_us(lambda: ops.grouped_matmul(x, w)):.1f} us, "
-                  f"torch.bmm {host_us(lambda: torch.bmm(x, w)):.1f} us")
-            del x, w
+                  f"ops.grouped_matmul {wrapper_us:.1f} us, gmm_fwd alone "
+                  f"{c_us:.1f} us, torch.bmm {bmm_us:.1f} us")
+            del x, w, out
     ms, plain_ms, library_ms, bound_ms, bound_by = timed[GMM_PREFILL.name]
     return {"name": "gmm_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gmm.cu",

@@ -36,6 +36,9 @@
 // from shared memory at each KV tile (at hdv 256 the 16 x 256 fp32
 // accumulator alone takes 128 registers a thread).  Causal q tiles are
 // issued heaviest first (the q tile is the grid's slowest dimension).
+// Each kernel's shared-memory attribute is set once per device (prepare);
+// flash_attention_load_kernels does that for every kernel, fp32 ones too,
+// when the library is loaded, so no launch on a served path loads one.
 // mma.sync and not wgmma: a 64-row wgmma tile per warpgroup with P from
 // registers needs the producer/consumer structure of K3 and a second
 // accumulator layout; mma.sync met this kernel's bar first and wgmma is
@@ -56,11 +59,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdio>
+
 namespace {
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // key/value rows per tile
 constexpr int NT = 256;       // threads: 16 row groups x 16 column lanes
+constexpr int MAX_HD = 256;   // the widest hd and hdv taken
 constexpr int RPT = BQ / 16;  // score rows per thread
 constexpr int CPT = BK / 16;  // score columns per thread
 constexpr float NEG_INF = -1e30f;
@@ -85,7 +92,7 @@ __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
-__host__ __device__ inline int kv_floats(int hd, int nv) {
+__host__ __device__ constexpr int kv_floats(int hd, int nv) {
   const int kt = hd * (BK + 1), vt = BK * 16 * nv;
   return kt > vt ? kt : vt;
 }
@@ -222,14 +229,43 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// Once per kernel and device: raise its dynamic shared memory above 48 KB
+// to `bytes` (which also loads it, where modules load lazily).  Later
+// launches set no attribute.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int bytes,
+                    std::atomic<bool> (&ready)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (ready[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) ready[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+__host__ __device__ constexpr int fma_bytes(int hd, int nv) {
+  return (BQ * (hd + 1) + kv_floats(hd, nv) + BQ * (BK + 1)) *
+         static_cast<int>(sizeof(float));
+}
+
+// fp32: the attribute is set once to the most any hd takes
+template <typename T, int NV>
+cudaError_t prepare_fma() {
+  static std::atomic<bool> ready[MAX_DEVICES];
+  return prepare(flash_fwd_kernel<T, NV>, fma_bytes(MAX_HD, NV), ready);
+}
+
 template <typename T, int NV>
 cudaError_t launch(const Params& p, int B, int H, cudaStream_t stream) {
-  const int floats = BQ * (p.hd + 1) + kv_floats(p.hd, NV) + BQ * (BK + 1);
-  const int bytes = floats * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  const cudaError_t err = prepare_fma<T, NV>();
   if (err != cudaSuccess) return err;
+  const int bytes = fma_bytes(p.hd, NV);
   const dim3 grid((p.S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, NV><<<grid, NT, bytes, stream>>>(p);
   return cudaGetLastError();
@@ -325,8 +361,9 @@ __device__ __forceinline__ void load_rows(bf16* __restrict__ dst,
   }
 }
 
-template <int DK, int DV, int MI>
+template <int DK_, int DV_, int MI_>
 struct TcTiling {
+  static constexpr int DK = DK_, DV = DV_, MI = MI_;
   static constexpr int BQ = 64 * MI;    // 4 warps of 16 MI query rows
   static constexpr int LDK = DK + 8;    // +16 bytes: rows on other banks
   static constexpr int LDV = DV + 8;
@@ -547,26 +584,45 @@ __global__ void __launch_bounds__(TNT) flash_fwd_mma_kernel(Params p) {
     }
 }
 
-template <int DK, int DV, int MI>
+template <typename Tl>
+cudaError_t prepare_mma() {
+  static std::atomic<bool> ready[MAX_DEVICES];
+  return prepare(flash_fwd_mma_kernel<Tl::DK, Tl::DV, Tl::MI>, Tl::BYTES,
+                 ready);
+}
+
+template <typename Tl>
 cudaError_t launch_mma(const Params& p, int B, int H, cudaStream_t stream) {
-  using Tl = TcTiling<DK, DV, MI>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<DK, DV, MI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::BYTES);
+  const cudaError_t err = prepare_mma<Tl>();
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B, (p.S + Tl::BQ - 1) / Tl::BQ);
-  flash_fwd_mma_kernel<DK, DV, MI><<<grid, TNT, Tl::BYTES, stream>>>(p);
+  flash_fwd_mma_kernel<Tl::DK, Tl::DV, Tl::MI>
+      <<<grid, TNT, Tl::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The smallest of the five tilings that holds hd and hdv.
-cudaError_t launch_bf16(const Params& p, int B, int H, cudaStream_t stream) {
-  if (p.hd <= 32 && p.hdv <= 32) return launch_mma<32, 32, 1>(p, B, H, stream);
-  if (p.hd <= 64 && p.hdv <= 64) return launch_mma<64, 64, 2>(p, B, H, stream);
-  if (p.hd <= 128 && p.hdv <= 128)
-    return launch_mma<128, 128, 2>(p, B, H, stream);
-  if (p.hdv <= 128) return launch_mma<256, 128, 1>(p, B, H, stream);
-  return launch_mma<256, 256, 1>(p, B, H, stream);
+// The smallest of the five tilings that holds hd and hdv, handed to fn
+// (flash_attention_fwd, flash_attention_tiling and _load_kernels)
+template <typename Fn>
+decltype(auto) with_bf16_tiling(int hd, int hdv, Fn&& fn) {
+  if (hd <= 32 && hdv <= 32) return fn(TcTiling<32, 32, 1>{});
+  if (hd <= 64 && hdv <= 64) return fn(TcTiling<64, 64, 2>{});
+  if (hd <= 128 && hdv <= 128) return fn(TcTiling<128, 128, 2>{});
+  if (hdv <= 128) return fn(TcTiling<256, 128, 1>{});
+  return fn(TcTiling<256, 256, 1>{});
+}
+
+// What a tiling is, from the constants its launch uses
+template <typename Tl>
+const char* tiling_name() {
+  static char name[128];
+  static const int written = snprintf(
+      name, sizeof name,
+      "mma.sync, q tile %d, hd/hdv padded to %d/%d, %d B dynamic shared "
+      "memory",
+      Tl::BQ, Tl::DK, Tl::DV, Tl::BYTES);
+  (void)written;
+  return name;
 }
 
 }  // namespace
@@ -582,17 +638,43 @@ extern "C" int flash_attention_fwd(
     long long o_sb, long long o_ss, long long o_sh, float scale, int causal,
     void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
-      hd <= 0 || hdv <= 0 || hd > 256 || hdv > 256 || B > 65535 ||
+      hd <= 0 || hdv <= 0 || hd > MAX_HD || hdv > MAX_HD || B > 65535 ||
       (S + 63) / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q,    k,    v,    o,    S,    T,    H / K, hd,   hdv,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,  v_ss, v_sh,
            o_sb, o_ss, o_sh, scale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0   ? launch_hdv<float>(p, B, H, st)
-                          : dtype == 1 ? launch_bf16(p, B, H, st)
-                                       : cudaErrorInvalidValue;
+  if (dtype == 0) return static_cast<int>(launch_hdv<float>(p, B, H, st));
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_bf16_tiling(hd, hdv, [&](auto tl) {
+    return launch_mma<decltype(tl)>(p, B, H, st);
+  }));
+}
+
+// Load every kernel of the library onto the current device and raise
+// each one's shared memory (prepare), so that no launch of a served path
+// pays for it.  Returns a cudaError_t (0 on success).
+extern "C" int flash_attention_load_kernels() {
+  cudaError_t err = prepare_fma<float, 2>();
+  if (err == cudaSuccess) err = prepare_fma<float, 4>();
+  if (err == cudaSuccess) err = prepare_fma<float, 8>();
+  if (err == cudaSuccess) err = prepare_fma<float, 16>();
+  for (const int hd : {32, 64, 128, 256})
+    for (const int hdv : {32, 64, 128, 256})
+      if (err == cudaSuccess)
+        err = with_bf16_tiling(hd, hdv, [](auto tl) {
+          return prepare_mma<decltype(tl)>();
+        });
   return static_cast<int>(err);
+}
+
+// The tiling flash_attention_fwd runs for this dtype and these head dims
+extern "C" const char* flash_attention_tiling(int dtype, int hd, int hdv) {
+  if (dtype != 1) return "fp32 CUDA cores, 64 x 64 tiles";
+  return with_bf16_tiling(hd, hdv, [](auto tl) {
+    return tiling_name<decltype(tl)>();
+  });
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

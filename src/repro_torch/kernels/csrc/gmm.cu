@@ -37,7 +37,12 @@
 //    enough of them in flight.  The producer is a single warp, so no
 //    setmaxnreg: 94 and 160 registers a thread fit without it.  The
 //    tensor maps are encoded on the host at each launch (through
-//    cudaGetDriverEntryPointByVersion, so the build needs no -lcuda).
+//    cudaGetDriverEntryPointByVersion, so the build needs no -lcuda): two
+//    encodings, a few µs of host time, on a decode step's 48 launches too,
+//    where this tiling still beat a 16 x 128 mma.sync one on an H100.  The
+//    shared-memory attribute and the persistent grid's size are set up
+//    once per tiling and device (prepare), and gmm_load_kernels does that
+//    for every tiling when the library is loaded.
 //  - fp32 stays on the CUDA cores in full fp32 (never TF32, which keeps
 //    about three decimal digits): cp.async double-buffered tiles, BM 64 x
 //    BN 64 x BK 16, 256 threads with a 4 x 4 patch each.
@@ -56,7 +61,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+#include <cstdio>
 
 namespace {
 
@@ -183,9 +190,13 @@ __global__ void __launch_bounds__(FNT)
 // 64 x BN) in flight; full/empty mbarriers hand each stage over.
 // ---------------------------------------------------------------------
 // CONS consumer warpgroups (64 rows of the tile each), a tile BN wide
-// (128 or 256: BN / 64 boxes of w), STAGES ring stages 64 deep
-template <int CONS, int STAGES, int BN_>
+// (128 or 256: BN / 64 boxes of w), STAGES ring stages 64 deep; PERSISTENT:
+// one block per resident slot (SMs x blocks an SM holds), each walking its
+// share of the tiles, else one block per tile
+template <int CONS_, int STAGES_, int BN_, bool PERSISTENT_>
 struct WgTiling {
+  static constexpr int CONS = CONS_, STAGES = STAGES_;
+  static constexpr bool PERSISTENT = PERSISTENT_;
   static constexpr int BM = 64 * CONS, BN = BN_, BK = 64;
   static constexpr int NT = 128 * CONS + 32;     // + the producer warp
   static constexpr int A_BYTES = BM * BK * 2;    // one box {64, BM}
@@ -195,6 +206,17 @@ struct WgTiling {
   // barriers
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 16 * STAGES;
 };
+
+// The two bf16 tilings and the switch between them (gmm_fwd, gmm_tiling)
+using DecodeTiling = WgTiling<1, 4, 128, false>;   // C <= SMALL_C_MAX
+using PrefillTiling = WgTiling<2, 4, 256, true>;   // C > SMALL_C_MAX
+constexpr int SMALL_C_MAX = 64;
+
+template <typename Fn>
+decltype(auto) with_bf16_tiling(int C, Fn&& fn) {
+  if (C <= SMALL_C_MAX) return fn(DecodeTiling{});
+  return fn(PrefillTiling{});
+}
 
 __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -345,13 +367,13 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
 // tile, f tile), the f tile fastest.  The ring and its phases run on
 // across a block's tiles, so the producer loads the next tile while the
 // consumers write this one.
-template <int CONS, int STAGES, int BN_>
-__global__ void __launch_bounds__(WgTiling<CONS, STAGES, BN_>::NT, 1)
+template <typename Tl>
+__global__ void __launch_bounds__(Tl::NT, 1)
     gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                      const __grid_constant__ CUtensorMap tw,
                      __nv_bfloat16* __restrict__ out, int E, int C, int d,
                      int f) {
-  using Tl = WgTiling<CONS, STAGES, BN_>;
+  constexpr int CONS = Tl::CONS, STAGES = Tl::STAGES;
   constexpr int BM = Tl::BM, BN = Tl::BN, BK = Tl::BK;
   constexpr int A_BYTES = Tl::A_BYTES, B_HALF = Tl::B_HALF;
   constexpr int STAGE_BYTES = Tl::STAGE_BYTES;
@@ -490,44 +512,76 @@ bool encode_3d(CUtensorMap* map, EncodeTiled fn, const void* base,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// PERSISTENT: one block per resident slot (SMs x blocks an SM holds),
-// each walking its share of the tiles; else one block per tile
-template <int CONS, int STAGES, int BN, bool PERSISTENT>
-cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E,
-                         int C, int d, int f, cudaStream_t stream) {
-  using Tl = WgTiling<CONS, STAGES, BN>;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
-    return cudaErrorMisalignedAddress;
-  CUtensorMap tx, tw;
-  if (!encode_3d(&tx, fn, x, d, C, E, 64, Tl::BM) ||
-      !encode_3d(&tw, fn, w, f, d, E, 64, Tl::BK))
-    return cudaErrorInvalidValue;
-  auto kernel = gmm_wgmma_kernel<CONS, STAGES, BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM_BYTES);
+constexpr int MAX_DEVICES = 64;
+
+// Once per tiling and device: raise the kernel's dynamic shared memory
+// above 48 KB (which also loads it, where modules load lazily) and count
+// the blocks of it the card holds at once (PERSISTENT's grid).  Later
+// launches read the count; they set no attribute and query nothing.
+template <typename Tl>
+cudaError_t prepare(int* slots) {
+  static std::atomic<int> ready[MAX_DEVICES];   // slots + 1; 0: not yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const long long tiles = static_cast<long long>(E) *
-                          ((C + Tl::BM - 1) / Tl::BM) *
-                          ((f + Tl::BN - 1) / Tl::BN);
-  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  long long grid = tiles;
-  if (PERSISTENT) {
-    int dev = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&dev);
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int got = ready[dev].load(std::memory_order_acquire);
+  if (got == 0) {
+    auto kernel = gmm_wgmma_kernel<Tl>;
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM_BYTES);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, kernel, Tl::NT, Tl::SMEM_BYTES);
     if (err != cudaSuccess) return err;
-    const long long slots = static_cast<long long>(sms) * per_sm;
-    if (slots < grid) grid = slots;
+    got = sms * per_sm + 1;
+    ready[dev].store(got, std::memory_order_release);
   }
-  kernel<<<static_cast<int>(grid), Tl::NT, Tl::SMEM_BYTES, stream>>>(
-      tx, tw, static_cast<__nv_bfloat16*>(out), E, C, d, f);
+  *slots = got - 1;
+  return cudaSuccess;
+}
+
+template <typename Tl>
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E,
+                         int C, int d, int f, cudaStream_t stream) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
+    return cudaErrorMisalignedAddress;
+  int slots = 0;
+  cudaError_t err = prepare<Tl>(&slots);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tx, tw;
+  if (!encode_3d(&tx, fn, x, d, C, E, 64, Tl::BM) ||
+      !encode_3d(&tw, fn, w, f, d, E, 64, Tl::BK))
+    return cudaErrorInvalidValue;
+  const long long tiles = static_cast<long long>(E) *
+                          ((C + Tl::BM - 1) / Tl::BM) *
+                          ((f + Tl::BN - 1) / Tl::BN);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const long long grid = Tl::PERSISTENT && slots < tiles ? slots : tiles;
+  gmm_wgmma_kernel<Tl><<<static_cast<int>(grid), Tl::NT, Tl::SMEM_BYTES,
+                         stream>>>(tx, tw, static_cast<__nv_bfloat16*>(out),
+                                   E, C, d, f);
   return cudaGetLastError();
+}
+
+// What a tiling is, from the constants its launch uses
+template <typename Tl>
+const char* tiling_name() {
+  static char name[160];
+  static const int written = snprintf(
+      name, sizeof name,
+      "wgmma %d x %d x %d, %s, TMA ring of %d stages, %d B dynamic shared "
+      "memory",
+      Tl::BM, Tl::BN, Tl::BK,
+      Tl::PERSISTENT ? "persistent blocks" : "a block per tile", Tl::STAGES,
+      Tl::SMEM_BYTES);
+  (void)written;
+  return name;
 }
 
 }  // namespace
@@ -541,15 +595,35 @@ extern "C" int gmm_fwd(const void* x, const void* w, void* out, int dtype,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return static_cast<int>(
-        C <= 64 ? launch_wgmma<1, 4, 128, false>(x, w, out, E, C, d, f, st)
-                : launch_wgmma<2, 4, 256, true>(x, w, out, E, C, d, f, st));
+    return static_cast<int>(with_bf16_tiling(C, [&](auto tl) {
+      return launch_wgmma<decltype(tl)>(x, w, out, E, C, d, f, st);
+    }));
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((f + FBN - 1) / FBN, (C + FBM - 1) / FBM, E);
   gmm_fma_kernel<<<grid, FNT, 0, st>>>(static_cast<const float*>(x),
                                        static_cast<const float*>(w),
                                        static_cast<float*>(out), C, d, f);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Load every kernel of the library onto the current device and set each
+// bf16 tiling up (prepare), so that no launch of a served path pays for
+// it.  Returns a cudaError_t (0 on success).
+extern "C" int gmm_load_kernels() {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, gmm_fma_kernel);
+  int slots = 0;
+  if (err == cudaSuccess) err = prepare<DecodeTiling>(&slots);
+  if (err == cudaSuccess) err = prepare<PrefillTiling>(&slots);
+  return static_cast<int>(err);
+}
+
+// The tiling gmm_fwd runs for this dtype and C rows per expert
+extern "C" const char* gmm_tiling(int dtype, int C) {
+  if (dtype != 1) return "fp32 CUDA cores, 64 x 64 x 16";
+  return with_bf16_tiling(C, [](auto tl) {
+    return tiling_name<decltype(tl)>();
+  });
 }
 
 extern "C" const char* gmm_error_string(int err) {

@@ -21,29 +21,18 @@ from repro_torch.kernels import nvcc as _nvcc
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# the C interface of flash_attention_fwd: q, k, v, o; dtype, B, S, T, H, K,
-# hd, hdv; the 12 element strides; scale, causal, stream
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-            + [ctypes.c_longlong] * 12
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-
-
-# launch_bf16's tilings in the source, smallest first: (hd, hdv) padded
-# to, and m16 row tiles per warp (the q tile is 64 of them)
-TILINGS = ((32, 32, 1), (64, 64, 2), (128, 128, 2), (256, 128, 1),
-           (256, 256, 1))
-
-
-def tiling(hd: int, hdv: int, dtype: torch.dtype) -> str:
-    """The tiling the kernel runs for these head dims (mirrors
-    ``launch_bf16`` and ``launch_hdv`` in the source)."""
-    if dtype != torch.bfloat16:
-        return "fp32 CUDA cores, 64 x 64 tiles"
-    dk, dv, mi = next(t for t in TILINGS if hd <= t[0] and hdv <= t[1])
-    bq = 64 * mi
-    smem = 2 * (bq * (dk + 8) + 2 * 64 * (dk + 8) + 2 * 64 * (dv + 8))
-    return (f"mma.sync, q tile {bq}, hd/hdv padded to {dk}/{dv}, {smem} B "
-            f"dynamic shared memory")
+# the C interface (name: argument types, result type); flash_attention_fwd
+# takes q, k, v, o; dtype, B, S, T, H, K, hd, hdv; the 12 element strides;
+# scale, causal, stream
+C_FUNCTIONS = {
+    "flash_attention_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                            + [ctypes.c_longlong] * 12
+                            + [ctypes.c_float, ctypes.c_int,
+                               ctypes.c_void_p], ctypes.c_int),
+    "flash_attention_load_kernels": ([], ctypes.c_int),
+    "flash_attention_tiling": ([ctypes.c_int] * 3, ctypes.c_char_p),
+    "flash_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
 
 
 def build() -> _nvcc.Build:
@@ -53,13 +42,22 @@ def build() -> _nvcc.Build:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    fn = lib.flash_attention_fwd
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    """The kernel library, built and bound, every kernel in it loaded onto
+    the current card (so that no served launch pays for loading one)."""
+    lib = _nvcc.load(SOURCE, C_FUNCTIONS)
+    err = lib.flash_attention_load_kernels()
+    if err:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"loading the flash attention kernels failed: "
+                           f"error {err} ({msg})")
     return lib
+
+
+def tiling(hd: int, hdv: int, dtype: torch.dtype) -> str:
+    """The tiling the kernel runs for these head dims, as the source's own
+    dispatch names it (builds the library)."""
+    return _library().flash_attention_tiling(_DTYPE_CODES[dtype], hd,
+                                             hdv).decode()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -109,8 +107,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, K, hdv = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     o = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
-    lib = _library()
     with torch.cuda.device(q.device):
+        lib = _library()
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

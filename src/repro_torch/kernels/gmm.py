@@ -18,22 +18,15 @@ from repro_torch.kernels import nvcc as _nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gmm.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the most rows per expert that take the 64-row tiling (gmm_fwd's switch)
-SMALL_C_MAX = 64
-# the C interface of gmm_fwd: x, w, out; dtype, E, C, d, f; stream
-ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-
-
-def tiling(C: int, dtype: torch.dtype) -> str:
-    """The tiling the kernel runs for C rows per expert (mirrors
-    ``gmm_fwd`` in the source)."""
-    if dtype != torch.bfloat16:
-        return "fp32 CUDA cores, 64 x 64 x 16"
-    if C <= SMALL_C_MAX:
-        return ("wgmma 64 x 128 x 64, a block per tile, TMA ring of 4 "
-                "stages, 99392 B dynamic shared memory")
-    return ("wgmma 128 x 256 x 64, persistent blocks, TMA ring of 4 stages, "
-            "197696 B dynamic shared memory")
+# the C interface (name: argument types, result type); gmm_fwd takes x, w,
+# out; dtype, E, C, d, f; stream
+C_FUNCTIONS = {
+    "gmm_fwd": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p], ctypes.c_int),
+    "gmm_load_kernels": ([], ctypes.c_int),
+    "gmm_tiling": ([ctypes.c_int] * 2, ctypes.c_char_p),
+    "gmm_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
 
 
 def build() -> _nvcc.Build:
@@ -43,13 +36,22 @@ def build() -> _nvcc.Build:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    fn = lib.gmm_fwd
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    lib.gmm_error_string.argtypes = [ctypes.c_int]
-    lib.gmm_error_string.restype = ctypes.c_char_p
+    """The kernel library, built and bound, every kernel in it loaded onto
+    the current card and each bf16 tiling set up (so that no served launch
+    pays for either)."""
+    lib = _nvcc.load(SOURCE, C_FUNCTIONS)
+    err = lib.gmm_load_kernels()
+    if err:
+        msg = lib.gmm_error_string(err).decode()
+        raise RuntimeError(f"loading the grouped matmul kernels failed: error "
+                           f"{err} ({msg})")
     return lib
+
+
+def tiling(C: int, dtype: torch.dtype) -> str:
+    """The tiling the kernel runs for C rows per expert, as the source's
+    own dispatch names it (builds the library)."""
+    return _library().gmm_tiling(_DTYPE_CODES[dtype], C).decode()
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -82,8 +84,8 @@ def gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     E, C, d = x.shape
     f = w.shape[2]
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
-    lib = _library()
     with torch.cuda.device(x.device):
+        lib = _library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gmm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                           _DTYPE_CODES[x.dtype], E, C, d, f, stream)

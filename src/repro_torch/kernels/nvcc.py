@@ -67,7 +67,12 @@ def build(source: Path) -> Build:
     return Build(out, seconds, proc.stdout + proc.stderr)
 
 
-def load(source: Path) -> ctypes.CDLL:
-    """The built library of ``source``; the caller sets argument types."""
-    return ctypes.CDLL(str(build(source).path))
+def load(source: Path, functions: dict) -> ctypes.CDLL:
+    """The built library of ``source``, each of ``functions`` (its name:
+    argument types, result type) bound with those types."""
+    lib = ctypes.CDLL(str(build(source).path))
+    for name, (argtypes, restype) in functions.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
 

@@ -20,10 +20,14 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 MAX_STATE = 256
-# the C interface of ssd_intra_chunk_fwd: 8 pointers, 8 ints, 12 element
-# strides, stream
-ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-            + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+# the C interface (name: argument types, result type);
+# ssd_intra_chunk_fwd takes 8 pointers, 8 ints, 12 element strides, stream
+C_FUNCTIONS = {
+    "ssd_intra_chunk_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                            + [ctypes.c_longlong] * 12 + [ctypes.c_void_p],
+                            ctypes.c_int),
+    "ssd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
 
 
 def build() -> _nvcc.Build:
@@ -33,13 +37,7 @@ def build() -> _nvcc.Build:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    fn = lib.ssd_intra_chunk_fwd
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    lib.ssd_error_string.argtypes = [ctypes.c_int]
-    lib.ssd_error_string.restype = ctypes.c_char_p
-    return lib
+    return _nvcc.load(SOURCE, C_FUNCTIONS)
 
 
 def _check(x, dt, A, Bm, Cm, chunk: int) -> None:

@@ -16,6 +16,11 @@ would understate how busy the device is.
 Prints, per phase, both wall times, the summed kernel time, the busy
 share (kernel time over the unprofiled wall time; 1 - busy is the idle
 share) and the top operators by device time.  Needs a CUDA device.
+
+With ``--first`` it profiles instead the first full-size prefill after
+the short warm-up request, the one ``chip_smoke.py`` times as TTFT, and
+lists operators and CUDA runtime calls by host time: what that prefill
+pays for once (kernels loaded lazily, memory allocated) shows there.
 """
 from __future__ import annotations
 
@@ -57,7 +62,10 @@ def _timed(fn) -> float:
 def main(argv: Optional[list[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=serve.FULL_ARCH, choices=sorted(RUNS))
-    arch = ap.parse_args(argv).arch
+    ap.add_argument("--first", action="store_true",
+                    help="profile the first full-size prefill by host time")
+    args = ap.parse_args(argv)
+    arch = args.arch
     if not torch.cuda.is_available():
         raise RuntimeError("profile_serve measures the card's device time; "
                            "no CUDA device is available")
@@ -69,6 +77,18 @@ def main(argv: Optional[list[str]] = None) -> None:
     with torch.inference_mode():
         serve.generate(model, prompts[:, :64], 2)            # warm-up
         cache = model.init_cache(B, P + DECODE_STEPS + 1)
+        if args.first:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                prof_wall = _timed(lambda: serve.prefill(model, cache,
+                                                         prompts))
+            print(f"[first prefill] wall {1e3 * prof_wall:.3f} ms under the "
+                  f"profiler, device kernels "
+                  f"{_device_us(prof) / 1e3:.3f} ms")
+            print(prof.key_averages().table(
+                sort_by="self_cpu_time_total", row_limit=ROWS,
+                max_name_column_width=60))
+            return
         tok = serve.prefill(model, cache, prompts)[0]
         phases = {
             "prefill": lambda: serve.prefill(model, cache, prompts),

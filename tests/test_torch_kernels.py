@@ -101,53 +101,41 @@ def test_launcher_takes_only_cuda_tensors():
 
 
 # ---------------------------------------------------------------------------
-# The C interfaces, read from the sources: a mismatch between a launch
-# function's parameters and the ctypes argtypes its module sets would only
-# show as a crash on the card.  Nothing here builds.
+# The C interfaces, read from the sources: a mismatch between a library's
+# extern "C" functions and the ctypes types its module binds them with
+# would only show as a crash on the card.  Nothing here builds.
 _C_KINDS = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "long long": ctypes.c_longlong,
-            "float": ctypes.c_float}
+            "float": ctypes.c_float, "const char*": ctypes.c_char_p}
+_MODULES = (tfa, tssd, tgmm)
 
 
-def _c_parameters(source, name):
-    """The ctypes kinds of ``extern "C" int name(...)``'s parameters."""
-    text = source.read_text()
-    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
-    assert m, f"no extern \"C\" int {name}(...) in {source.name}"
-    kinds = []
-    for param in m.group(1).split(","):
-        ctype = re.sub(r"\s+", " ", param).strip().rsplit(" ", 1)[0]
-        ctype = ctype.replace(" *", "*")
-        assert ctype in _C_KINDS, f"{name}: unknown parameter type {ctype!r}"
-        kinds.append(_C_KINDS[ctype])
-    return kinds
+def _c_type(text):
+    ctype = re.sub(r"\s+", " ", text).strip().replace(" *", "*")
+    assert ctype in _C_KINDS, f"unknown C type {ctype!r}"
+    return _C_KINDS[ctype]
+
+
+def _c_functions(source):
+    """Each ``extern "C"`` function of a source: name -> (the ctypes kinds
+    of its parameters, that of its result)."""
+    found = {}
+    for ret, name, params in re.findall(
+            r'extern "C" ([\w ]+?\*?) ?(\w+)\(([^)]*)\)',
+            source.read_text()):
+        kinds = [_c_type(p.strip().rsplit(" ", 1)[0])
+                 for p in params.split(",") if p.strip()]
+        found[name] = (kinds, _c_type(ret))
+    return found
+
+
+def test_every_c_function_is_bound():
+    for module in _MODULES:
+        assert set(_c_functions(module.SOURCE)) == set(module.C_FUNCTIONS)
 
 
 @pytest.mark.parametrize("module,function", [
-    (tfa, "flash_attention_fwd"),
-    (tssd, "ssd_intra_chunk_fwd"),
-    (tgmm, "gmm_fwd"),
-])
+    (module, name) for module in _MODULES for name in module.C_FUNCTIONS])
 def test_c_interface_matches_argtypes(module, function):
-    assert _c_parameters(module.SOURCE, function) == list(module.ARGTYPES)
-
-
-def test_tiling_names_mirror_the_sources_dispatch():
-    """``tiling`` in the Python modules names what the C dispatch runs."""
-    fa_src = tfa.SOURCE.read_text()
-    for dk, dv, mi in tfa.TILINGS:
-        assert f"launch_mma<{dk}, {dv}, {mi}>" in fa_src
-        assert (f"q tile {64 * mi}, hd/hdv padded to {dk}/{dv}"
-                in tfa.tiling(dk, dv, torch.bfloat16))
-    assert fa_src.count("return launch_mma<") == len(tfa.TILINGS)
-    assert "padded to 256/128" in tfa.tiling(192, 128, torch.bfloat16)
-    assert "padded to 32/32" in tfa.tiling(8, 8, torch.bfloat16)
-    assert "CUDA cores" in tfa.tiling(128, 128, torch.float32)
-    gmm_src = tgmm.SOURCE.read_text()
-    assert (f"C <= {tgmm.SMALL_C_MAX} ? launch_wgmma<1, 4, 128, false>"
-            in gmm_src)
-    assert ": launch_wgmma<2, 4, 256, true>" in gmm_src
-    assert tgmm.tiling(tgmm.SMALL_C_MAX, torch.bfloat16).startswith(
-        "wgmma 64 x 128 x 64, a block per tile")
-    assert tgmm.tiling(tgmm.SMALL_C_MAX + 8, torch.bfloat16).startswith(
-        "wgmma 128 x 256 x 64, persistent")
+    argtypes, restype = module.C_FUNCTIONS[function]
+    assert _c_functions(module.SOURCE)[function] == (list(argtypes), restype)
