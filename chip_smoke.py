@@ -25,15 +25,20 @@ Phases (each raises on failure):
    serving phase (4, 7, 10) warms up with a short request, times TTFT on
    the first full-size prefill, and prints a second prefill's time beside
    it;
-5. K2 (the SSD intra-chunk term, CUDA) against its plain PyTorch version on
-   the card at the mamba2-130m serving prefill shape, Q 8, a prompt
-   shorter than a chunk, two groups of two heads, a slow decay, in bf16
-   and fp32; its wrapper ``ops.ssd_chunked`` (K2 and the inter-chunk
-   recurrence, as the main path calls it) at the serving shape, from a
-   zero and from a random state, against the same call on CPU copies (its
-   plain route) and against the sequential recurrence on the card; and
-   K2's time beside the plain version and its bound;
-6. SSD duality at full width (mamba2-130m, 2 × 512 tokens): the one-call
+5. K2 (the SSD intra-chunk term, CUDA; bf16 on the tensor cores) against
+   its plain PyTorch version on the card at the mamba2-130m serving prefill
+   shape, Q 8, a prompt shorter than a chunk, two groups of two heads, a
+   slow decay, in bf16 and fp32, and at the edges of the bf16 path (Q 64,
+   65, 232 and 255; one, two and 24 heads a group; N 64 and 256; P 32 and
+   128; a view off 16-byte alignment; the longest chunk it takes at the
+   serving N and P, and one tile longer), each with the path it ran; its
+   wrapper ``ops.ssd_chunked`` (K2 and the inter-chunk recurrence, as the
+   main path calls it) at the serving shape, from a zero and from a random
+   state, against the same call on CPU copies (its plain route) and
+   against the sequential recurrence on the card; and K2's time beside
+   the plain version and its bound;
+6. SSD duality at full width (mamba2-130m, 2 × 512 tokens, and 2 × 300: a
+   chunk and a remainder of 44, two K2 launches a layer): the one-call
    prefill through K2 against token-by-token decode on the sequential
    recurrence, in fp32 (logits and the final caches) and in bf16 (each
    side's logits against the fp32 model on the same weights, and the two
@@ -137,6 +142,9 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # tests/test_kernels.py:113, elementwise atol = rtol
 DUALITY_TOL = 1e-3
 DUALITY_BATCH, DUALITY_PROMPT = 2, 512
+# a prompt that is no multiple of the chunk: 256 + 44, prefilled as the
+# whole chunk and the remainder, two K2 launches a layer
+RAGGED_PROMPT = 300
 # In bf16 the two sides of the duality carry bf16 rounding compounded over
 # 24 random layers (each ~0.214 relative norm from the fp32 model on the
 # same bf16-valued weights), so each is judged against that model, as
@@ -175,6 +183,7 @@ class SsdCase:
     Q: int
     dtype: torch.dtype
     a_scale: float = 1.0     # A = -a_scale * linspace(1, 16, H)
+    misalign: int = 0        # leading columns that move the views off 16 B
 
 
 SSD_PREFILL = SsdCase("prefill mamba2-130m", SSM_BATCH, SSM_PROMPT, 24, 1,
@@ -189,6 +198,26 @@ SSD_CASES = [
             torch.bfloat16),
     SsdCase("G 2, hpg 2", 2, 512, 4, 2, 64, 128, 256, torch.float32, 0.01),
     SsdCase("G 2, hpg 2, bf16", 2, 512, 4, 2, 64, 128, 256, torch.bfloat16),
+    # the bf16 tensor-core path's edges: Q one 64-row tile, one row over,
+    # the remainder of a 1000-token prompt, one row under a chunk; one, two
+    # and 24 heads a group; N 64 and 256; P 32 and 128; views off 16-byte
+    # alignment (staged element by element); the longest chunk it takes at
+    # the serving N and P, and one tile longer (the CUDA-core kernel)
+    SsdCase("Q 64", 2, 512, 8, 1, 64, 128, 64, torch.bfloat16),
+    SsdCase("Q 65, hpg 2", 2, 390, 8, 4, 64, 128, 65, torch.bfloat16),
+    SsdCase("Q 232 (1000 mod 256)", SSM_BATCH, 232, 24, 1, 64, 128, 232,
+            torch.bfloat16),
+    SsdCase("Q 255, hpg 1", 2, 510, 8, 8, 64, 128, 255, torch.bfloat16),
+    SsdCase("hpg 24, G 2", 2, 512, 48, 2, 64, 128, 256, torch.bfloat16),
+    SsdCase("N 64", 2, 1024, 24, 1, 64, 64, 256, torch.bfloat16),
+    SsdCase("N 256", 2, 1024, 24, 1, 64, 256, 256, torch.bfloat16),
+    SsdCase("P 32", 2, 1024, 24, 1, 32, 128, 256, torch.bfloat16),
+    SsdCase("P 128, N 256", 2, 1024, 12, 1, 128, 256, 256, torch.bfloat16,
+            0.01),
+    SsdCase("view off 16 B", 2, 1000, 24, 1, 64, 128, 250, torch.bfloat16,
+            misalign=1),
+    SsdCase("Q 704", 1, 1408, 24, 1, 64, 128, 704, torch.bfloat16, 0.01),
+    SsdCase("Q 768", 1, 1536, 24, 1, 64, 128, 768, torch.bfloat16, 0.01),
 ]
 
 
@@ -344,30 +373,33 @@ def attention_bound_ms(c: Case) -> tuple[float, str]:
 def ssd_inputs(c: SsdCase, gen: torch.Generator):
     """x [B,L,H,P] and Bm/Cm [B,L,G,N] as strided views of one packed
     tensor, the way the Mamba2 block hands them to K2; dt = softplus of a
-    normal draw, fp32."""
-    packed = torch.randn((c.B, c.L, c.H * c.P + 2 * c.G * c.N),
-                         generator=gen, device="cuda").to(c.dtype)
+    normal draw, fp32.  ``c.misalign`` leading columns of the packed tensor
+    move the views, and their row stride, off 16-byte alignment."""
+    hp, gn, m = c.H * c.P, c.G * c.N, c.misalign
+    packed = torch.randn((c.B, c.L, m + hp + 2 * gn), generator=gen,
+                         device="cuda").to(c.dtype)
     dt = F.softplus(torch.randn((c.B, c.L, c.H), generator=gen,
                                 device="cuda"))
     A = -c.a_scale * torch.linspace(1.0, 16.0, c.H, device="cuda")
-    hp, gn = c.H * c.P, c.G * c.N
-    x = packed[..., :hp].reshape(c.B, c.L, c.H, c.P)
-    Bm = packed[..., hp:hp + gn].reshape(c.B, c.L, c.G, c.N)
-    Cm = packed[..., hp + gn:].reshape(c.B, c.L, c.G, c.N)
+    x = packed[..., m:m + hp].reshape(c.B, c.L, c.H, c.P)
+    Bm = packed[..., m + hp:m + hp + gn].reshape(c.B, c.L, c.G, c.N)
+    Cm = packed[..., m + hp + gn:].reshape(c.B, c.L, c.G, c.N)
     return x, dt, A, Bm, Cm
 
 
 def ssd_bound_ms(c: SsdCase) -> tuple[float, str]:
     """Least time for K2's work: x, dt, A, B, C read once and y, state, cum
-    written once; the causal half of C·Bᵀ and of (C·Bᵀ∘L)(x·dt), and the
-    state product, at the peak for the inputs' type."""
+    written once; the causal half of C·Bᵀ once per group, of (C·Bᵀ∘L)(x·dt)
+    per head, and the state product per head, at the peak for the inputs'
+    type."""
     elem = torch.finfo(c.dtype).bits // 8
     nc = c.L // c.Q
     nbytes = (elem * c.B * c.L * (c.H * c.P + 2 * c.G * c.N)
               + 4 * (c.B * c.L * c.H + c.H)
               + 4 * c.B * c.H * (c.L * c.P + nc * c.N * c.P + c.L))
     pairs = c.Q * (c.Q + 1) // 2
-    flops = 2 * c.B * c.H * nc * (pairs * (c.N + c.P) + c.Q * c.N * c.P)
+    flops = 2 * c.B * nc * (c.G * pairs * c.N
+                            + c.H * (pairs * c.P + c.Q * c.N * c.P))
     peak = BF16_FLOP_PER_S if c.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -672,7 +704,8 @@ def phase_k2() -> dict:
                 parts.append(f"{name} {err:.3e}")
                 errs[c.name] = max(errs.get(c.name, 0.0), err)
             print(f"K2 {c.name:20s} B{c.B} L{c.L} H{c.H} G{c.G} P{c.P} "
-                  f"N{c.N} Q{c.Q} {str(c.dtype)[6:]:8s}: max|d| "
+                  f"N{c.N} Q{c.Q} {str(c.dtype)[6:]:8s} "
+                  f"[{ssd_kernel.path(c.dtype, c.Q, c.P, c.N)}]: max|d| "
                   f"{', '.join(parts)} (tol {tol:.0e} abs + rel) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
@@ -735,33 +768,43 @@ def phase_k2() -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def phase_duality() -> None:
+def phase_duality(S: int) -> None:
     """State-space duality at full width: the one-call prefill (the chunked
     scan through K2) against token-by-token decode (the sequential
-    recurrence), over the same prompts, in fp32 (logits and final caches)
-    and in bf16 (logits, each against the fp32 model and each other)."""
+    recurrence), over the same prompts of S tokens, in fp32 (logits and
+    final caches) and in bf16 (logits, each against the fp32 model and each
+    other).  The one-call prefill must launch K2 once a layer for the whole
+    chunks and once more for a remainder."""
     cfg = configs.get(SSM_ARCH)
-    B, S = DUALITY_BATCH, DUALITY_PROMPT
+    B = DUALITY_BATCH
+    want_launches = cfg.n_layers * ((S >= cfg.ssm_chunk)
+                                    + (S % cfg.ssm_chunk > 0))
     model, tokens = serve.setup(cfg, B, S, "cuda", seed=1)
+    bad = []
 
     def both_ways(m: Model):
         with torch.inference_mode():
+            ops.ssd_chunked.launches = 0
             one_call, chunked = m.decode_step(m.init_cache(B, S), tokens, 0)
+            launches = ops.ssd_chunked.launches
             seq = m.init_cache(B, S)
             t0 = time.perf_counter()
             by_token = torch.cat([m.decode_step(seq, tokens[:, t:t + 1],
                                                 t)[0] for t in range(S)],
                                  dim=1)
             torch.cuda.synchronize()
-        print(f"duality {cfg.name} {str(m.dtype)[6:]}: {S} token-by-token "
-              f"steps at {1e3 * (time.perf_counter() - t0) / S:.3f} ms each")
+        print(f"duality {cfg.name} {str(m.dtype)[6:]} B{B} S{S}: K2 "
+              f"launches in the one-call prefill {launches} (want "
+              f"{want_launches}); {S} token-by-token steps at "
+              f"{1e3 * (time.perf_counter() - t0) / S:.3f} ms each")
+        if launches != want_launches:
+            bad.append(f"{str(m.dtype)[6:]} launches")
         return one_call.float(), chunked, by_token.float(), seq
 
     one_call, chunked, by_token, seq = both_ways(fp32_copy(model))
     checks = [("logits", one_call, by_token)] + [
         (f"{name} (all layers)", chunked[0][0]["ssm"][name],
          seq[0][0]["ssm"][name]) for name in ("state", "conv")]
-    bad = []
     for name, got, want in checks:
         err, worst = compare(got, want, DUALITY_TOL)
         print(f"duality {cfg.name} fp32 B{B} S{S}, {name}: max|d| "
@@ -1004,7 +1047,8 @@ def main() -> int:
     phase_small(SERVE_ARCH)
     launches = Counter(phase_serve())       # each main path's launches
     k2 = phase_k2()
-    phase_duality()
+    phase_duality(DUALITY_PROMPT)
+    phase_duality(RAGGED_PROMPT)
     launches.update(phase_serve_ssm())
     k3 = phase_k3()
     phase_small(MOE_ARCH)

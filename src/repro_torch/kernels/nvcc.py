@@ -46,10 +46,12 @@ def compiler() -> str:
 
 
 @functools.cache
-def build(source: Path) -> Build:
-    """Compile ``source`` once per process (and once per source and flags)."""
+def build(source: Path, flags: tuple[str, ...] = ()) -> Build:
+    """Compile ``source`` once per process (and once per source and flags);
+    ``flags`` are added to ``NVCC_FLAGS`` (a variant's ``-D`` defines)."""
+    flags = NVCC_FLAGS + tuple(flags)
     key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / key / f"lib{source.stem}.so"
     if out.exists():
         return Build(out, 0.0, "")
@@ -57,7 +59,7 @@ def build(source: Path) -> Build:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -67,10 +69,12 @@ def build(source: Path) -> Build:
     return Build(out, seconds, proc.stdout + proc.stderr)
 
 
-def load(source: Path, functions: dict) -> ctypes.CDLL:
-    """The built library of ``source``, each of ``functions`` (its name:
-    argument types, result type) bound with those types."""
-    lib = ctypes.CDLL(str(build(source).path))
+def load(source: Path, functions: dict,
+         flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built library of ``source`` (with ``flags``), each of
+    ``functions`` (its name: argument types, result type) bound with those
+    types."""
+    lib = ctypes.CDLL(str(build(source, tuple(flags)).path))
     for name, (argtypes, restype) in functions.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype

@@ -26,18 +26,35 @@ C_FUNCTIONS = {
     "ssd_intra_chunk_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                             + [ctypes.c_longlong] * 12 + [ctypes.c_void_p],
                             ctypes.c_int),
+    "ssd_load_kernels": ([], ctypes.c_int),
+    "ssd_path": ([ctypes.c_int] * 4, ctypes.c_char_p),
     "ssd_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 
-def build() -> _nvcc.Build:
-    """Compile the kernel library once per process (and once per source)."""
-    return _nvcc.build(SOURCE)
+def build(flags: tuple[str, ...] = ()) -> _nvcc.Build:
+    """Compile the kernel library once per process (and once per source
+    and flags; ``("-DSSD_SPLIT_PIECES=2",)`` builds the bf16 path with two
+    bf16 pieces of each fp32 operand instead of three)."""
+    return _nvcc.build(SOURCE, flags)
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    return _nvcc.load(SOURCE, C_FUNCTIONS)
+def library(flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library, built and bound, every kernel in it loaded onto
+    the current card (so that no served launch pays for loading one)."""
+    lib = _nvcc.load(SOURCE, C_FUNCTIONS, flags)
+    err = lib.ssd_load_kernels()
+    if err:
+        raise RuntimeError(f"loading the SSD kernels failed: error {err} "
+                           f"({lib.ssd_error_string(err).decode()})")
+    return lib
+
+
+def path(dtype: torch.dtype, Q: int, P: int, N: int) -> str:
+    """What the kernel runs for this dtype, chunk, head dim and state dim,
+    as the source's own dispatch names it (builds the library)."""
+    return library().ssd_path(_DTYPE_CODES[dtype], Q, P, N).decode()
 
 
 def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
@@ -78,14 +95,16 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
 
 
 def ssd_intra_chunk_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                        Bm: torch.Tensor, Cm: torch.Tensor, chunk: int):
+                        Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                        lib: ctypes.CDLL | None = None):
     """Launch K2.  x: [B,L,H,P]; dt: [B,L,H] fp32; A: [H] fp32; Bm, Cm:
     [B,L,G,N]; x, Bm and Cm in one dtype, read through their strides.
 
     Returns (y [B*H,nc,Q,P], state [B*H,nc,N,P], cum [B*H,nc,Q]), fp32,
     with Q = chunk and nc = L // Q: the layout of the Pallas kernel and of
-    ``ref.ssd_intra_chunk_ref``.  Raises on any input the kernel does not
-    take and on a launch the card refuses.
+    ``ref.ssd_intra_chunk_ref``.  ``lib`` is ``library()`` unless a
+    variant's (``library(flags)``) is given.  Raises on any input the
+    kernel does not take and on a launch the card refuses.
     """
     _check(x, dt, A, Bm, Cm, chunk)
     B, L, H, P = x.shape
@@ -95,8 +114,8 @@ def ssd_intra_chunk_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty((B * H, nc, chunk, P), **f32)
     state = torch.empty((B * H, nc, N, P), **f32)
     cum = torch.empty((B * H, nc, chunk), **f32)
-    lib = _library()
     with torch.cuda.device(x.device):
+        lib = lib or library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_intra_chunk_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),

@@ -90,14 +90,17 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               chunk: Optional[int] = None):
     """Mamba2 block on x [B,L,d].  Returns (y [B,L,d], cache).
 
-    - no cache: the chunked scan over the sequence from a zero state;
+    - no cache: the chunked scan over the sequence from a zero state, with
+      the chunk ``min(chunk or cfg.ssm_chunk, L)``, which must divide L (as
+      JAX's ``ssd_chunked`` asserts);
     - cache {"conv": [B,W-1,C], "state": [B,H,P,N]} and L > 1: the one-call
-      prefill.  The chunked scan starts from the cache's state and conv
-      tail, and the final state and the new conv tail are written into the
-      cache in place (the JAX package prefills token by token);
+      prefill, at any L.  The whole chunks run as one chunked scan from the
+      cache's state and conv tail, and the L mod chunk tokens left as one
+      shorter chunk from the state that scan ends in (two K2 launches where
+      L > chunk is not a multiple of it); the final state and the new conv
+      tail are written into the cache in place (the JAX package prefills
+      token by token);
     - cache and L == 1: the single-step recurrence, in place.
-
-    The chunk is ``min(chunk or cfg.ssm_chunk, L)`` and must divide L.
     """
     dims = ssm_dims(cfg)
     B_, L, _ = x.shape
@@ -119,10 +122,20 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())                      # [H], negative
 
-    if cache is None or L > 1:
+    if cache is None:
         Q = min(chunk or cfg.ssm_chunk, L)
-        init = cache["state"] if cache is not None else None
-        y, final = ops.ssd_chunked(xs, dt, A, Bm, Cm, Q, init_state=init)
+        y, final = ops.ssd_chunked(xs, dt, A, Bm, Cm, Q)
+    elif L > 1:
+        Q = chunk or cfg.ssm_chunk
+        whole = L - L % Q
+        ys, final = [], cache["state"]
+        for lo, hi, q in ((0, whole, Q), (whole, L, L - whole)):
+            if hi > lo:
+                y, final = ops.ssd_chunked(
+                    xs[:, lo:hi], dt[:, lo:hi], A, Bm[:, lo:hi],
+                    Cm[:, lo:hi], q, init_state=final)
+                ys.append(y)
+        y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     else:
         # single-step recurrence: S = exp(dt*A) S + dt * B ⊗ x ; y = C·S
         s = cache["state"].float()                          # [B,H,P,N]

@@ -101,19 +101,23 @@ def test_serving_prefill_runs_k1_once_per_layer(cuda):
     torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
 
 
-def ssd_inputs(B, L, H, G, P, N, dtype, device, a_scale=1.0, seed=0):
+def ssd_inputs(B, L, H, G, P, N, dtype, device, a_scale=1.0, seed=0,
+               misalign=0):
     """x [B,L,H,P], dt [B,L,H], A [H], Bm/Cm [B,L,G,N] as the Mamba2 block
     hands them to the kernel: x, B and C are strided views of one packed
-    tensor, dt = softplus(normal), A = -a_scale * linspace(1, 16, H)."""
+    tensor, dt = softplus(normal), A = -a_scale * linspace(1, 16, H).
+    ``misalign`` extra leading columns of the packed tensor move the views
+    (and their row stride) off 16-byte alignment."""
     rng = np.random.default_rng(seed)
+    hp, gn = H * P, G * N
     packed = torch.from_numpy(rng.standard_normal(
-        (B, L, H * P + 2 * G * N), dtype=np.float32)).to(device, dtype)
+        (B, L, misalign + hp + 2 * gn), dtype=np.float32)).to(device, dtype)
     dt = torch.nn.functional.softplus(torch.from_numpy(
         rng.standard_normal((B, L, H), dtype=np.float32))).to(device)
     A = -a_scale * torch.linspace(1.0, 16.0, H, device=device)
-    x = packed[..., :H * P].reshape(B, L, H, P)
-    Bm = packed[..., H * P:H * P + G * N].reshape(B, L, G, N)
-    Cm = packed[..., H * P + G * N:].reshape(B, L, G, N)
+    x = packed[..., misalign:misalign + hp].reshape(B, L, H, P)
+    Bm = packed[..., misalign + hp:misalign + hp + gn].reshape(B, L, G, N)
+    Cm = packed[..., misalign + hp + gn:].reshape(B, L, G, N)
     return x, dt, A, Bm, Cm
 
 
@@ -124,6 +128,21 @@ def ssd_inputs(B, L, H, G, P, N, dtype, device, a_scale=1.0, seed=0):
     (1, 100, 4, 2, 64, 128, 100, torch.bfloat16, 0.01),  # Q = L < chunk
     (8, 4096, 24, 1, 64, 128, 256, torch.bfloat16, 1.0),  # serving prefill
     (1, 512, 24, 1, 64, 128, 256, torch.float32, 0.01),
+    # the bf16 tensor-core path's edges: Q one 64-row tile, one row over,
+    # the remainder of a 1000-token prompt, one row under a chunk; hpg 1,
+    # 2 and 24; N 64 and 256; P 32 and 128; the longest chunk it takes at
+    # N 128 / P 64, and one tile longer (the CUDA-core kernel)
+    (2, 512, 8, 1, 64, 128, 64, torch.bfloat16, 1.0),
+    (2, 390, 8, 4, 64, 128, 65, torch.bfloat16, 1.0),
+    (2, 232, 24, 1, 64, 128, 232, torch.bfloat16, 1.0),
+    (2, 510, 8, 8, 64, 128, 255, torch.bfloat16, 1.0),
+    (1, 512, 48, 2, 64, 128, 256, torch.bfloat16, 1.0),
+    (2, 512, 24, 1, 64, 64, 256, torch.bfloat16, 1.0),
+    (1, 512, 8, 1, 64, 256, 256, torch.bfloat16, 1.0),
+    (2, 512, 24, 1, 32, 128, 256, torch.bfloat16, 1.0),
+    (1, 512, 8, 2, 128, 256, 256, torch.bfloat16, 0.01),
+    (1, 1408, 4, 1, 64, 128, 704, torch.bfloat16, 0.01),
+    (1, 1536, 4, 1, 64, 128, 768, torch.bfloat16, 0.01),
 ])
 def test_ssd_kernel_matches_plain(cuda, B, L, H, G, P, N, chunk, dtype,
                                   a_scale):
@@ -136,6 +155,31 @@ def test_ssd_kernel_matches_plain(cuda, B, L, H, G, P, N, chunk, dtype,
     for name, g, w in zip(("y", "state", "cum"), got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         torch.testing.assert_close(g, w, **SSD_TOL[dtype], msg=name)
+
+
+@pytest.mark.parametrize("misalign,P,N", [(1, 64, 128), (1, 8, 8),
+                                           (8, 64, 128)])
+def test_ssd_kernel_takes_views_off_16_bytes(cuda, misalign, P, N):
+    """x, B and C views whose base or row stride is not a multiple of 16
+    bytes (staged element by element), and one that is aligned again."""
+    x, dt, A, Bm, Cm = ssd_inputs(2, 500, 4, 2, P, N, torch.bfloat16, cuda,
+                                  misalign=misalign)
+    with torch.inference_mode():
+        got = ssd_kernel.ssd_intra_chunk_fwd(x, dt, A, Bm, Cm, 250)
+        want = ref.ssd_intra_chunk_ref(*ref.to_chunks(x, dt, A, Bm, Cm,
+                                                      250))
+        torch.cuda.synchronize()
+    for name, g, w in zip(("y", "state", "cum"), got, want):
+        torch.testing.assert_close(g, w, **SSD_TOL[torch.bfloat16], msg=name)
+
+
+def test_ssd_path_names_the_kernel_each_input_runs(cuda):
+    assert ssd_kernel.path(torch.bfloat16, 256, 64, 128).startswith(
+        "mma.sync, C B^T once per group")
+    assert ssd_kernel.path(torch.bfloat16, 768, 64, 128).startswith(
+        "bf16 CUDA cores")
+    assert ssd_kernel.path(torch.float32, 256, 64, 128).startswith(
+        "fp32 CUDA cores")
 
 
 def test_ssd_chunked_counts_launches_and_refuses_grad(cuda):
@@ -190,6 +234,28 @@ def test_mamba2_serving_runs_k2_once_per_layer_in_prefill(cuda):
         assert ops.ssd_chunked.launches == before + cfg.n_layers
     assert torch.isfinite(logits).all()
     assert tuple(rest.shape) == (2, 4)
+
+
+def test_mamba2_ragged_prefill_runs_k2_twice_per_layer(cuda):
+    """A 300-token prompt is a chunk of 256 and a remainder of 44: two K2
+    launches a layer in the one-call prefill, none in decode; its logits
+    agree with token-by-token decode (the sequential recurrence) in fp32."""
+    cfg = configs.get(serve.SSM_ARCH)
+    model, prompts = serve.setup(cfg, 2, 300, cuda, dtype=torch.float32)
+    with torch.inference_mode():
+        cache = model.init_cache(2, 304)
+        before = ops.ssd_chunked.launches
+        tok, logits, cache = serve.prefill(model, cache, prompts)
+        assert ops.ssd_chunked.launches == before + 2 * cfg.n_layers == \
+            before + 48
+        rest, _ = serve.decode(model, cache, tok, 300, 4)
+        assert ops.ssd_chunked.launches == before + 48
+        seq = model.init_cache(2, 300)
+        by_token = torch.cat([model.decode_step(seq, prompts[:, t:t + 1],
+                                                t)[0]
+                              for t in range(300)], dim=1)
+    assert tuple(rest.shape) == (2, 4)
+    torch.testing.assert_close(logits, by_token, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("E,C,d,f,dtype", [

@@ -237,11 +237,13 @@ def _jax_token_by_token(jp, jx, jcfg, cache):
     return jnp.concatenate(outs, axis=1), cache
 
 
-@pytest.mark.parametrize("L", [16, 5])
+@pytest.mark.parametrize("L", [16, 5, 12, 20])
 def test_ssm_apply_one_call_prefill_matches_jax_token_by_token(L):
     """The cached path with L > 1 (a chunked scan from the cache's state)
     gives the outputs and leaves the cache of JAX's L == 1 path run over
-    the same inputs; L 5 is shorter than the chunk and than the conv."""
+    the same inputs; L 5 is shorter than the chunk and than the conv; L 12
+    and 20 are one and two chunks of 8 and a remainder of 4, scanned as a
+    shorter chunk from the state the whole chunks end in."""
     jcfg, tcfg, jp, tp = _block("float32")
     jx, tx = _x(jcfg, 2, L, "float32")
     want, jcache = _jax_token_by_token(
@@ -272,6 +274,35 @@ def test_ssm_apply_prefill_from_a_carried_cache_matches_jax():
     for name in ("conv", "state"):
         np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]),
                                    **TOL["float32"], err_msg=name)
+
+
+def test_ssm_apply_ragged_prefill_from_a_carried_cache_matches_jax():
+    """The one-call prefill of 13 tokens (a chunk of 8 and a remainder of
+    5) from the cache that 8 earlier tokens left, against JAX's L == 1
+    path continuing token by token."""
+    jcfg, tcfg, jp, tp = _block("float32")
+    jx, tx = _x(jcfg, 2, 21, "float32", seed=10)
+    _, jcache = _jax_token_by_token(
+        jp, jx[:, :8], jcfg, jssm.ssm_cache_init(jcfg, 2, dtype=jnp.float32))
+    cache = {k: torch.from_numpy(np.asarray(v, np.float32))
+             for k, v in jcache.items()}
+    want, jcache = _jax_token_by_token(jp, jx[:, 8:], jcfg, jcache)
+    got, _ = tssm.ssm_apply(tp, tx[:, 8:], tcfg, cache=cache)
+    assert tuple(got.shape) == (2, 13, jcfg.d_model)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+    for name in ("conv", "state"):
+        np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]),
+                                   **TOL["float32"], err_msg=name)
+
+
+def test_ssm_apply_without_cache_refuses_a_ragged_length():
+    """The uncached scan keeps JAX's rule (``ssd_chunked`` asserts L %
+    chunk == 0): 12 tokens at chunk 8 raise; only the cached one-call
+    prefill takes a remainder chunk."""
+    _, tcfg, _, tp = _block("float32")
+    _, tx = _x(tcfg, 2, 12, "float32")
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tssm.ssm_apply(tp, tx, tcfg)
 
 
 def test_ssm_apply_decode_step_matches_jax():
@@ -384,12 +415,9 @@ def test_one_call_prefill_then_decode_matches_jax_token_by_token(dtype,
                     **_scaled(TOL, dtype, want_c), err_msg=name)
 
 
-def test_greedy_serve_tokens_match_jax(tmp_path):
-    """The port's serve loop (one-call prefill, then token by token) picks
-    the same greedy tokens as JAX's serve step driven as its serve.main
-    drives it (prefill token by token)."""
+def _greedy_serve_tokens_match_jax(tmp_path, P):
     jm, params, tm = _pair("float32", tmp_path)
-    B, P, gen = 2, 16, 8
+    B, gen = 2, 8
     prompts = _tokens(jm.cfg, B, P, seed=2)
     step = jax.jit(jmake_serve_step(jm))
     cache = jm.init_cache(B, P + gen)
@@ -404,6 +432,27 @@ def test_greedy_serve_tokens_match_jax(tmp_path):
     with torch.inference_mode():
         got = tserve.generate(tm, torch.from_numpy(prompts).long(), gen)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_greedy_serve_tokens_match_jax(tmp_path):
+    """The port's serve loop (one-call prefill, then token by token) picks
+    the same greedy tokens as JAX's serve step driven as its serve.main
+    drives it (prefill token by token)."""
+    _greedy_serve_tokens_match_jax(tmp_path, 16)
+
+
+def test_greedy_serve_tokens_match_jax_at_a_ragged_prompt(tmp_path):
+    """A 12-token prompt (a chunk of 8 and a remainder of 4) prefilled in
+    one call gives JAX's greedy tokens."""
+    _greedy_serve_tokens_match_jax(tmp_path, 12)
+
+
+def test_serve_main_takes_a_ragged_prompt():
+    """``python -m repro_torch.launch.serve --prompt-len 12`` serves on the
+    CPU (the smoke config's chunk is 8)."""
+    out = tserve.main(["--device", "cpu", "--prompt-len", "12", "--batch",
+                       "2", "--gen", "4"])
+    assert tuple(out.shape) == (2, 4)
 
 
 def test_checkpoint_bridge_round_trip_keeps_fp32_params(tmp_path):
