@@ -30,39 +30,46 @@
 // Any Q is taken (the last 64-row tile is masked), P <= 128, N <= 256.
 //
 // bf16: tensor cores (ssd_tc_kernel).  The unit of work is a (chunk,
-// group, batch) and a job: one 64-row q tile of y, or one 64-row n tile
-// of the state, each looping over the group's H/G heads.  A y block first
-// computes the group's C B^T rows for its q tile over the causal k tiles,
-// once, on mma.sync.m16n8k16 (bf16 C and B, exact products summed in
-// fp32), and keeps them in shared memory in fp32 (64 x 256 x 4 = 64 KB at
-// Q 256); C's fragments stay in registers while B's 64-row tiles stream
-// through a two-stage cp.async ring.  Then, head by head, each warp forms
-// its 16 rows of M = (C B^T) o L_h o dt_h in fp32 registers, from the
-// shared C B^T and the head's fp64 cum (exp only on and below the
-// diagonal, 16 x 16 steps above it skipped), and multiplies M by x (bf16,
-// exact; ldmatrix.trans from a cp.async ring that already holds the next
-// head's first tile) into fp32 accumulators: y = M x.  A state block keeps
-// its 64 columns of the chunk's B in shared memory for all heads and takes
-// state = W^T x with W = B * exp(cum_end - cum) * dt, its W^T fragments
-// read from B by ldmatrix.trans and scaled in registers.  So C B^T is
-// computed once per group and B is read once per chunk, not once per head.
-// M and W are fp32; each is split into SSD_SPLIT_PIECES bf16 pieces (hi =
-// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid)) and each piece
-// takes one MMA against the exact bf16 x: with three pieces every product
-// is the fp32 product (24 significand bits), with two about 16 bits.
-// Jobs are issued heaviest first (the state tiles and the last q tile).
-// Each block's cum is a block-wide fp64 scan of dt * A (dA rounded to
-// fp32, as the plain version rounds it), per head.  Views that are not
-// 16-byte aligned (base, or a stride that is not a multiple of 8) are
-// staged element by element by the same kernel, zero-filled past Q, P and
-// N.  P and N are padded to 64 or 128 and 64, 128 or 256 (the tiling).
-// Shared memory grows with Q (C B^T rows and the per-head cum); a chunk too
-// long for a block's 227 KB runs on the CUDA-core kernel below.  mma.sync
-// and not wgmma: M and W^T are formed in registers, which is mma.sync's A
-// operand as it stands; wgmma would take them from registers too, but in a
-// 64-row warpgroup layout with an asynchronous accumulator, and this
-// kernel's time goes to forming M (an exp and the bf16 split per element),
-// not to the products.
+// group, batch) and a job that loops over the group's H/G heads: a 64-row
+// q tile of y, or a 128-row tile of the state (64 rows where N <= 64).
+// Jobs go out a state tile first, then the q tiles heaviest first,
+// alternating, each over all chunks before the next.
+//   A y block first computes its q tile's C B^T rows over the causal k
+// tiles, once, on mma.sync.m16n8k16 (bf16 C and B, exact products summed
+// in fp32; C's fragments in registers, B's 64-row tiles through a
+// two-stage cp.async ring), and keeps them in shared memory in fp32 (64 x
+// 256 x 4 = 64 KB at Q 256).  Then, head by head, every warp forms its 16
+// rows of M = (C B^T) o L_h o dt_h in fp32 registers, 16 columns at a
+// time: below the diagonal L[i,j] dt_j = exp(cum_i - ref) * exp(ref -
+// cum_j) dt_j, ref = cum at the end of the 16 columns, the second factor
+// made once per head and column; on the diagonal block an exp per term on
+// and below the diagonal; above it 0.  Each exponent is a difference of
+// fp64 cums, scaled by log2(e) in fp64 and rounded once to fp32; where dA
+// <= 0 (every SSD model: dt > 0, A < 0) both factors are <= 1.  y = M x
+// runs on wgmma (m64nDPk16, M's pieces from registers, x from shared
+// memory by descriptor), every warp issuing the four 16-column steps of a
+// k tile.
+//   A state block keeps its columns of the chunk's B in shared memory for
+// all heads and takes state = W^T x, W = B exp(cum_end - cum) dt, its W^T
+// fragments read from B by ldmatrix.trans and scaled in registers, on
+// wgmma the same way.  So C B^T is computed once per group and B is read
+// once per chunk.
+//   x's 64-row tiles come by TMA (one 64 x 64 box per 64 columns, 128-byte
+// swizzle, an mbarrier per slot) through a three-slot ring, two tiles
+// ahead; a view TMA cannot take (not 16-byte aligned) is staged element by
+// element into the same layout, zero past Q and P.
+//   M and W are fp32; each is split into SSD_SPLIT_PIECES bf16 pieces (hi =
+// bf16(v), lo = bf16(v - hi); a third piece, bf16(v - hi - lo), would carry
+// all 24 significand bits) and each piece takes one product with the
+// exact bf16 x.  Two pieces keep about 16 bits: y within its bf16
+// tolerance and the final state within 1e-4 with a margin (PERF.md, PR 16).
+//   Per head, dt * A is scanned in fp64 across the block (dA rounded to
+// fp32, as the plain version rounds it), double-buffered: head h + 1's
+// scan and decay factors are made around the barriers of head h's first
+// step.  P and N are padded to 64 or 128 and 64, 128 or 256 (the
+// tiling).  Shared memory grows with Q (C B^T rows, the per-head buffers);
+// a chunk too long for a block's 227 KB (Q > 704 at N 128, P 64) runs on
+// the CUDA-core kernel below.
 //
 // fp32: CUDA cores (ssd_kernel).  One block of 256 threads per (chunk,
 // head, batch), flash-style without the softmax: for each 64-row q tile it
@@ -75,11 +82,11 @@
 // P 64, G 1, N 128, Q 256, bf16 x, B, C; fp32 dt and outputs) the kernel
 // must read its inputs and write y, state and cum once: 425 MB, 0.127 ms
 // at 3.35 TB/s.  Its products (the causal half of C B^T once per group, of
-// M x per head, and the state product) are 2.6e10 FLOP, 0.026 ms at the
-// bf16 tensor-core peak; with three pieces the tensor cores do about three
-// times the M x and state products, 0.08 ms.  So the floor is the bytes.
-// The CUDA-core fp32 kernel (67 TFLOP/s at most, C B^T once per head) is
-// bound by its 5.2e10 FLOP at 0.78 ms.
+// M x per head, and the state product) are 2.7e10 FLOP, 0.027 ms at the
+// bf16 tensor-core peak; with two pieces, and the zero blocks above the
+// diagonal, the tensor cores do about 6e10, 0.06 ms.  So the floor is the
+// bytes.  The CUDA-core fp32 kernel (67 TFLOP/s at most, C B^T once per
+// head) is bound by its 5.2e10 FLOP at 0.78 ms.
 #include <cuda.h>   // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -369,8 +376,8 @@ cudaError_t launch_p(const Params& p, int B, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------
-// bf16: tensor cores (mma.sync.m16n8k16, operands by ldmatrix, tiles
-// through cp.async)
+// bf16: tensor cores (C B^T on mma.sync.m16n8k16, y and the state on
+// wgmma with A from registers; x by TMA, B and C by cp.async)
 // ---------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int TNT = 128;        // threads: 4 warps of 16 rows
@@ -497,6 +504,8 @@ __device__ __forceinline__ void stage_x_plain(bf16* __restrict__ slot,
     slot[x_at(r, c)] = r0 + r < n_rows && c < d ? src[(r0 + r) * ld_g + c]
                                                 : __float2bfloat16(0.f);
   }
+  // wgmma reads the slot through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The A fragment of a 16 x 16 fp32 tile (v: a0's two values, a1's, a2's,
@@ -518,28 +527,137 @@ __device__ __forceinline__ void split(float (&v)[8], unsigned (&a)[NP][4]) {
     }
 }
 
-// acc[m][n] += (sum of the pieces of a[m]) x (x's n8 tiles of the 16 rows
-// from k0 of an x slot, B fragments by ldmatrix.trans, each used by the MI
-// row tiles), the smallest piece first
-template <int MI, int NP, int DP>
-__device__ __forceinline__ void mma_pieces(float (&acc)[MI][DP / 8][4],
-                                           const unsigned (&a)[MI][NP][4],
-                                           const bf16* xs, int k0, int lane) {
-  // matrices (k 0-7, cols 0-7), (k 8-15, cols 0-7), (k 0-7, cols 8-15),
-  // (k 8-15, cols 8-15), transposed into B fragments of two n8 tiles
-  const int r = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+// Registers the compiler must hold unchanged across this point
+__device__ __forceinline__ void keep_registers(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+__device__ __forceinline__ void keep_registers(unsigned& v) {
+  asm volatile("" : "+r"(v)::"memory");
+}
+template <typename T, int N>
+__device__ __forceinline__ void keep_registers(T (&v)[N]) {
 #pragma unroll
-  for (int n = 0; n < DP / 8; n += 2) {
-    unsigned bv[4];
-    ldmatrix_x4_trans(bv, xs + x_at(r, n * 8 + (lane >> 4) * 8));
+  for (int i = 0; i < N; ++i) keep_registers(v[i]);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// A wgmma shared-memory descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr, unsigned lbo,
+                                               unsigned sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D[64 x 64] (fp32, the warpgroup's registers, this warp's rows in mma.sync's
+// accumulator layout) += A B: A [64 x 16] from registers (this warp's 16 rows
+// in mma.sync's A layout), B [16 x 64] MN-major (imm-trans-b 1) by descriptor
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                             const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] (fp32, the warpgroup's registers, this warp's rows in mma.sync's
+// accumulator layout) += A B: A [64 x 16] from registers (this warp's 16 rows
+// in mma.sync's A layout), B [16 x 128] MN-major (imm-trans-b 1) by descriptor
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                             const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc[m] += (sum of the NP pieces of a[kk][m]) x (the x slot's rows 16 kk
+// .. 16 kk + 15) for the KN 16-row steps from k0 of a tile and the MI
+// 64-row tiles of the warpgroup, the smallest piece first, as one commit
+// group: wgmma with A from registers and x's slot, MN-major with the
+// 128-byte swizzle (a k16 step is 16 rows of 128 bytes, 8-row groups 1024
+// bytes apart, the 64-column boxes TR * 128 bytes apart).  Every warp of
+// the block issues them; the fragments and accumulators stay untouched
+// until wgmma_wait.
+template <int KN, int KS, int MI, int NP, int DP>
+__device__ __forceinline__ void wgmma_issue(float (&acc)[MI][DP / 8][4],
+                                            unsigned (&a)[KS][MI][NP][4],
+                                            const bf16* xs, int k0) {
+  const unsigned x0 = smem_u32(xs);
+  keep_registers(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < KN; ++k) {
+    const uint64_t db = sw128_desc(x0 + 2048 * (k0 + k), TR * 128, 1024);
 #pragma unroll
     for (int m = 0; m < MI; ++m)
 #pragma unroll
       for (int pi = NP - 1; pi >= 0; --pi) {
-        mma16816(acc[m][n], a[m][pi], bv[0], bv[1]);
-        mma16816(acc[m][n + 1], a[m][pi], bv[2], bv[3]);
+        if constexpr (DP == 64)
+          wgmma_rs_n64(acc[m], a[k0 + k][m][pi], db);
+        else
+          wgmma_rs_n128(acc[m], a[k0 + k][m][pi], db);
       }
   }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Until every issued wgmma has completed: it read the fragments and wrote
+// the accumulators asynchronously, so neither may be reused or moved by
+// the compiler before this
+template <int KS, int MI, int NP, int DP>
+__device__ __forceinline__ void wgmma_wait(float (&acc)[MI][DP / 8][4],
+                                           unsigned (&a)[KS][MI][NP][4]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  keep_registers(a);
+  keep_registers(acc);
 }
 
 // Rows r and r + 8 of a [n_rows, P] fp32 output from a warp's m16
@@ -813,9 +931,9 @@ __global__ void __launch_bounds__(TNT, 2)
 
   if (is_state) {
     // ---- state = W^T x, W = B exp(cum_end - cum) dt; SROWS columns of N
-    constexpr int SM16 = Tl::SM16;
+    constexpr int SM16 = Tl::SM16;                 // 64-row tiles of it
     const int n0 = job * Tl::SROWS;
-    const int nw = n0 + 16 * SM16 * warp;          // this warp's first row
+    const int nw = n0 + 16 * warp;                 // rows nw + 64 m
     bf16* bs = reinterpret_cast<bf16*>(area);      // [QP][LDB] B columns
     const int steps = hpg * n_qt;                  // (head, q tile)
     int pf_h = h0, pf_t = 0;                       // the next step to stage
@@ -838,39 +956,44 @@ __global__ void __launch_bounds__(TNT, 2)
         __syncthreads();          // ... for every thread
         if (qt == 0) next_b(hi);
         const bf16* xs = ring + (s % XS) * XSLOT;
-        if (nw < N) {
-          // W's 16-row steps of the tile (none past Q)
-          const int n16 = min(TR, Q - qt * TR + 15) / 16;
+        // W's 16-row steps of the tile (0 past Q), every warp
+        const int n16 = min(TR, Q - qt * TR + 15) / 16;
+        unsigned a[TR / 16][SM16][PIECES][4];
 #pragma unroll
-          for (int kk = 0; kk < TR / 16; ++kk) {
-            if (kk >= n16) break;
-            const int q16 = qt * TR + kk * 16;
-            const float2 s0 = *reinterpret_cast<const float2*>(
-                hb.fac + q16 + 2 * t4);
-            const float2 s8 = *reinterpret_cast<const float2*>(
-                hb.fac + q16 + 2 * t4 + 8);
-            unsigned a[SM16][PIECES][4];
+        for (int kk = 0; kk < TR / 16; ++kk) {
+          const int q16 = qt * TR + kk * 16;
+          const float2 s0 = *reinterpret_cast<const float2*>(
+              hb.fac + q16 + 2 * t4);
+          const float2 s8 = *reinterpret_cast<const float2*>(
+              hb.fac + q16 + 2 * t4 + 8);
 #pragma unroll
-            for (int m = 0; m < SM16; ++m) {
-              // Bᵀ's A fragment (rows n, k = q) by ldmatrix.trans of B
-              unsigned bt[4];
-              ldmatrix_x4_trans(bt, bs + (q16 + (lane & 7) +
-                                          ((lane >> 4) << 3)) * LDB +
-                                        (nw - n0) + 16 * m +
-                                        ((lane >> 3) & 1) * 8);
-              float v[8];
+          for (int m = 0; m < SM16; ++m) {
+            if (kk >= n16) {
 #pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const float2 f = unpack_bf16(bt[e]);
-                const float2 sc = e < 2 ? s0 : s8;
-                v[2 * e] = f.x * sc.x;
-                v[2 * e + 1] = f.y * sc.y;
-              }
-              split(v, a[m]);
+              for (int pi = 0; pi < PIECES; ++pi)
+                a[kk][m][pi][0] = a[kk][m][pi][1] = a[kk][m][pi][2] =
+                    a[kk][m][pi][3] = 0u;
+              continue;
             }
-            mma_pieces<SM16, PIECES, DP>(acc, a, xs, kk * 16, lane);
+            // Bᵀ's A fragment (rows n, k = q) by ldmatrix.trans of B
+            unsigned bt[4];
+            ldmatrix_x4_trans(bt, bs + (q16 + (lane & 7) +
+                                        ((lane >> 4) << 3)) * LDB +
+                                      16 * warp + 64 * m +
+                                      ((lane >> 3) & 1) * 8);
+            float v[8];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = unpack_bf16(bt[e]);
+              const float2 sc = e < 2 ? s0 : s8;
+              v[2 * e] = f.x * sc.x;
+              v[2 * e + 1] = f.y * sc.y;
+            }
+            split(v, a[kk][m]);
           }
         }
+        wgmma_issue<TR / 16, TR / 16, SM16, PIECES, DP>(acc, a, xs, 0);
+        wgmma_wait<TR / 16, SM16, PIECES, DP>(acc, a);
         __syncthreads();          // the slot is consumed before it is refilled
         if (qt == 0) next_fac(hi);
       }
@@ -878,7 +1001,7 @@ __global__ void __launch_bounds__(TNT, 2)
           (static_cast<long long>(b) * p.H + h0 + hi) * p.nc + c;
 #pragma unroll
       for (int m = 0; m < SM16; ++m)
-        store_rows<DP>(p.state + bhc * N * P, acc[m], nw + 16 * m + g8, N, P,
+        store_rows<DP>(p.state + bhc * N * P, acc[m], nw + 64 * m + g8, N, P,
                        t4);
     }
     return;
@@ -971,7 +1094,8 @@ __global__ void __launch_bounds__(TNT, 2)
     auto below = [&](int j0, unsigned (&a)[1][PIECES][4]) {
       const double ref = hb.cum[j0 + 15];
       const float e[2] = {
-          i0 < Q ? exp_fp64(ci0 - ref) : 0.f, i1 < Q ? exp_fp64(ci1 - ref) : 0.f};
+          i0 < Q ? exp_fp64(ci0 - ref) : 0.f,
+          i1 < Q ? exp_fp64(ci1 - ref) : 0.f};
       const int jc = j0 + 2 * t4;
       float v[8];
       cb_frag(jc, v);
@@ -991,44 +1115,44 @@ __global__ void __launch_bounds__(TNT, 2)
       __syncthreads();          // ... for every thread
       if (kt == 0) next_b(hi);
       const bf16* xs = ring + (s % XS) * XSLOT;
-      if (warp_live && kt < qt) {
-        // a k tile below the diagonal: four blocks, formed first
-        unsigned a[TR / 16][1][PIECES][4];
+      // four 16-column blocks: below the diagonal (factored decays), on
+      // it (exp per term on and below the diagonal), or above it (0)
+      unsigned a[TR / 16][1][PIECES][4];
 #pragma unroll
-        for (int kk = 0; kk < TR / 16; ++kk) below(kt * TR + kk * 16, a[kk]);
+      for (int kk = 0; kk < TR / 16; ++kk) {
+        const int j0 = kt * TR + kk * 16;
+        if (warp_live && (kt < qt || kk < warp)) {
+          below(j0, a[kk]);
+        } else if (warp_live && kk == warp) {
+          const int jc = j0 + 2 * t4;
+          float v[8];
+          cb_frag(jc, v);
+          const double2 cj0 = *reinterpret_cast<const double2*>(hb.cum + jc);
+          const double2 cj8 =
+              *reinterpret_cast<const double2*>(hb.cum + jc + 8);
+          const float2 d0 = *reinterpret_cast<const float2*>(hb.dt + jc);
+          const float2 d8 = *reinterpret_cast<const float2*>(hb.dt + jc + 8);
+          const double cj[4] = {cj0.x, cj0.y, cj8.x, cj8.y};
+          const float dj[4] = {d0.x, d0.y, d8.x, d8.y};
 #pragma unroll
-        for (int kk = 0; kk < TR / 16; ++kk)
-          mma_pieces<1, PIECES, DP>(acc, a[kk], xs, kk * 16, lane);
-      } else if (warp_live) {
-        // the diagonal k tile: the warp's blocks below the diagonal, then
-        // its 16 x 16 block on it, exp per term on and below the diagonal
-        unsigned a[1][PIECES][4];
-        for (int kk = 0; kk < warp; ++kk) {
-          below(q0 + kk * 16, a);
-          mma_pieces<1, PIECES, DP>(acc, a, xs, kk * 16, lane);
+          for (int k = 0; k < 8; ++k) {
+            const int col = (k & 1) + ((k >> 2) << 1);   // into cj, dj
+            const int i = (k >> 1) & 1 ? i1 : i0;
+            const int j = jc + (k & 1) + ((k >> 2) << 3);
+            const double ci = (k >> 1) & 1 ? ci1 : ci0;
+            v[k] = j <= i && i < Q ? v[k] * exp_fp64(ci - cj[col]) * dj[col]
+                                   : 0.f;
+          }
+          split(v, a[kk][0]);
+        } else {
+#pragma unroll
+          for (int pi = 0; pi < PIECES; ++pi)
+            a[kk][0][pi][0] = a[kk][0][pi][1] = a[kk][0][pi][2] =
+                a[kk][0][pi][3] = 0u;
         }
-        const int jc = q0 + 16 * warp + 2 * t4;
-        float v[8];
-        cb_frag(jc, v);
-        const double2 cj0 = *reinterpret_cast<const double2*>(hb.cum + jc);
-        const double2 cj8 = *reinterpret_cast<const double2*>(hb.cum + jc + 8);
-        const float2 d0 = *reinterpret_cast<const float2*>(hb.dt + jc);
-        const float2 d8 = *reinterpret_cast<const float2*>(hb.dt + jc + 8);
-        const double cj[4] = {cj0.x, cj0.y, cj8.x, cj8.y};
-        const float dj[4] = {d0.x, d0.y, d8.x, d8.y};
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const int col = (k & 1) + ((k >> 2) << 1);   // into cj, dj
-          const int i = (k >> 1) & 1 ? i1 : i0;
-          const int j = jc + (k & 1) + ((k >> 2) << 3);
-          const double ci = (k >> 1) & 1 ? ci1 : ci0;
-          v[k] = j <= i && i < Q
-                     ? v[k] * exp_fp64(ci - cj[col]) * dj[col]
-                     : 0.f;
-        }
-        split(v, a[0]);
-        mma_pieces<1, PIECES, DP>(acc, a, xs, warp * 16, lane);
       }
+      wgmma_issue<TR / 16, TR / 16, 1, PIECES, DP>(acc, a, xs, 0);
+      wgmma_wait<TR / 16, 1, PIECES, DP>(acc, a);
       __syncthreads();          // the slot is consumed before it is refilled
       if (kt == 0) next_fac(hi);
     }
