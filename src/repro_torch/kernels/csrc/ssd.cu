@@ -58,11 +58,13 @@
 // swizzle, an mbarrier per slot) through a three-slot ring, two tiles
 // ahead; a view TMA cannot take (not 16-byte aligned) is staged element by
 // element into the same layout, zero past Q and P.
-//   M and W are fp32; each is split into SSD_SPLIT_PIECES bf16 pieces (hi =
-// bf16(v), lo = bf16(v - hi); a third piece, bf16(v - hi - lo), would carry
-// all 24 significand bits) and each piece takes one product with the
-// exact bf16 x.  Two pieces keep about 16 bits: y within its bf16
-// tolerance and the final state within 1e-4 with a margin (PERF.md, PR 16).
+//   M and W are fp32; each is split into SSD_SPLIT_PIECES (3) bf16 pieces
+// (hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), together all
+// 24 significand bits) and each piece takes one product with the exact
+// bf16 x, so every product is the fp32 product.  Two pieces (about 16
+// bits) hold K2 to its own checks, but move the bf16 model's one-call
+// prefill 0.105 from its token-by-token decode, over the 0.08 that
+// chip_smoke.py allows (PERF.md, PR 16).
 //   Per head, dt * A is scanned in fp64 across the block (dA rounded to
 // fp32, as the plain version rounds it), double-buffered: head h + 1's
 // scan and decay factors are made around the barriers of head h's first
@@ -83,9 +85,9 @@
 // must read its inputs and write y, state and cum once: 425 MB, 0.127 ms
 // at 3.35 TB/s.  Its products (the causal half of C B^T once per group, of
 // M x per head, and the state product) are 2.7e10 FLOP, 0.027 ms at the
-// bf16 tensor-core peak; with two pieces, and the zero blocks above the
-// diagonal, the tensor cores do about 6e10, 0.06 ms.  So the floor is the
-// bytes.  The CUDA-core fp32 kernel (67 TFLOP/s at most, C B^T once per
+// bf16 tensor-core peak; with three pieces, and the zero blocks above
+// the diagonal, the tensor cores do about 8e10, 0.08 ms.  So the floor is
+// the bytes.  The CUDA-core fp32 kernel (67 TFLOP/s at most, C B^T once per
 // head) is bound by its 5.2e10 FLOP at 0.78 ms.
 #include <cuda.h>   // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
@@ -96,7 +98,7 @@
 #include <cstdio>
 
 #ifndef SSD_SPLIT_PIECES
-#define SSD_SPLIT_PIECES 2
+#define SSD_SPLIT_PIECES 3
 #endif
 
 namespace {
