@@ -31,7 +31,8 @@
 //
 // bf16: tensor cores (ssd_tc_kernel).  The unit of work is a (chunk,
 // group, batch) and a job that loops over the group's H/G heads: a 64-row
-// q tile of y, or a 128-row tile of the state (64 rows where N <= 64).
+// q tile of y, or a 128-row tile of the state (64 rows where N <= 64 or
+// P > 64).
 // Jobs go out a state tile first, then the q tiles heaviest first,
 // alternating, each over all chunks before the next.
 //   A y block first computes its q tile's C B^T rows over the causal k
@@ -727,8 +728,10 @@ template <int DN_, int DP_>
 struct TcTiling {
   static constexpr int DN = DN_, DP = DP_;
   static constexpr int LDN = DN + 8;      // +16 bytes: rows on other banks
-  // a state block's rows of N: two 16-row tiles a warp where N > 64
-  static constexpr int SM16 = DN >= 128 ? 2 : 1, SROWS = 64 * SM16;
+  // a state block's rows of N: two 64-row wgmma tiles where N > 64 and P
+  // <= 64 (at P 128 their accumulators and fragments would spill)
+  static constexpr int SM16 = DN >= 128 && DP == 64 ? 2 : 1;
+  static constexpr int SROWS = 64 * SM16;
   static constexpr int LDB = SROWS + 8;   // its B columns [QP][SROWS+8]
   static constexpr int BSLOT = TR * LDN, XSLOT = TR * DP;   // elements
   static constexpr int RING_BYTES =
