@@ -31,7 +31,7 @@ Phases (each raises on failure):
    slow decay, in bf16 and fp32, and at the edges of the bf16 path (Q 64,
    65, 232 and 255; one, two and 24 heads a group; N 64 and 256; P 32 and
    128; a view off 16-byte alignment; the longest chunk it takes at the
-   serving N and P, and one tile longer), each with the path it ran; its
+   serving N and P, 640, and one tile longer), each with the path it ran; its
    wrapper ``ops.ssd_chunked`` (K2 and the inter-chunk recurrence, as the
    main path calls it) at the serving shape, from a zero and from a random
    state, against the same call on CPU copies (its plain route) and
@@ -216,8 +216,8 @@ SSD_CASES = [
             0.01),
     SsdCase("view off 16 B", 2, 1000, 24, 1, 64, 128, 250, torch.bfloat16,
             misalign=1),
+    SsdCase("Q 640", 1, 1280, 24, 1, 64, 128, 640, torch.bfloat16, 0.01),
     SsdCase("Q 704", 1, 1408, 24, 1, 64, 128, 704, torch.bfloat16, 0.01),
-    SsdCase("Q 768", 1, 1536, 24, 1, 64, 128, 768, torch.bfloat16, 0.01),
 ]
 
 

@@ -71,7 +71,7 @@
 // scan and decay factors are made around the barriers of head h's first
 // step.  P and N are padded to 64 or 128 and 64, 128 or 256 (the
 // tiling).  Shared memory grows with Q (C B^T rows, the per-head buffers);
-// a chunk too long for a block's 227 KB (Q > 704 at N 128, P 64) runs on
+// a chunk too long for a block's 227 KB (Q > 640 at N 128, P 64) runs on
 // the CUDA-core kernel below.
 //
 // fp32: CUDA cores (ssd_kernel).  One block of 256 threads per (chunk,

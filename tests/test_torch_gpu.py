@@ -141,8 +141,8 @@ def ssd_inputs(B, L, H, G, P, N, dtype, device, a_scale=1.0, seed=0,
     (1, 512, 8, 1, 64, 256, 256, torch.bfloat16, 1.0),
     (2, 512, 24, 1, 32, 128, 256, torch.bfloat16, 1.0),
     (1, 512, 8, 2, 128, 256, 256, torch.bfloat16, 0.01),
+    (1, 1280, 4, 1, 64, 128, 640, torch.bfloat16, 0.01),
     (1, 1408, 4, 1, 64, 128, 704, torch.bfloat16, 0.01),
-    (1, 1536, 4, 1, 64, 128, 768, torch.bfloat16, 0.01),
 ])
 def test_ssd_kernel_matches_plain(cuda, B, L, H, G, P, N, chunk, dtype,
                                   a_scale):
@@ -176,7 +176,9 @@ def test_ssd_kernel_takes_views_off_16_bytes(cuda, misalign, P, N):
 def test_ssd_path_names_the_kernel_each_input_runs(cuda):
     assert ssd_kernel.path(torch.bfloat16, 256, 64, 128).startswith(
         "mma.sync, C B^T once per group")
-    assert ssd_kernel.path(torch.bfloat16, 768, 64, 128).startswith(
+    assert ssd_kernel.path(torch.bfloat16, 640, 64, 128).startswith(
+        "mma.sync, C B^T once per group")
+    assert ssd_kernel.path(torch.bfloat16, 704, 64, 128).startswith(
         "bf16 CUDA cores")
     assert ssd_kernel.path(torch.float32, 256, 64, 128).startswith(
         "fp32 CUDA cores")
