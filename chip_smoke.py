@@ -78,6 +78,27 @@ Phases (each raises on failure):
    left out, with the experts it touches, and counted) and y within
    bf16's tolerance, with the least router top-k margin printed.
 
+12. gradients: K1, K2 and K3 through their ``autograd.Function``s on the
+   card (forward on the kernel, backward recomputing the plain version),
+   in bf16 and fp32 at two small shapes each, forward and every input
+   gradient against autograd through the plain version on the card, one
+   launch counted per forward;
+13. one step of ``launch.train.make_train_step`` on the deepseek-7b,
+   mamba2-130m and olmoe-1b-7b smoke configs in fp32 on the card against
+   CPU copies: loss, every gradient and the parameters after AdamW;
+14. train mamba2-130m at full width (bf16, remat, B 8 × S 4096) through
+   ``runtime.run_training`` with the CLI's schedule: 30 steps, a
+   checkpoint every 10, a failure injected at step 15; K2 forward (twice a
+   layer a step: remat recomputes it) with the plain recompute backward;
+15. train internvl2-2b's language model at full width (bf16, remat, text
+   only, B 4 × S 2048): 12 steps, a checkpoint every 4, a failure at step
+   6, with examples/train_lm.py's AdamW; K1 forward twice a layer a step.
+   Each full-width run prints its median step time, tokens/s, MFU, peak
+   memory, launches a step, first and last loss and restarts, and checks
+   one restart, a falling loss, finite losses and that the steps replayed
+   from the checkpoint give the first pass's losses.  The launches of
+   both runs count in the JSON line, beside the serving paths'.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  With no
 CUDA device, or without the port's package beside it, the script exits
@@ -88,8 +109,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -106,8 +130,12 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gmm as gmm_kernel  # noqa: E402
 from repro_torch.kernels import nvcc, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
+from repro_torch.runtime import LoopConfig, StepMonitor  # noqa: E402
+from repro_torch.runtime import run_training  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 
@@ -129,6 +157,7 @@ SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = (
     serve.SSM_ARCH, serve.SSM_BATCH, serve.SSM_PROMPT, serve.SSM_GEN)
 MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN = (
     serve.MOE_ARCH, serve.MOE_BATCH, serve.MOE_PROMPT, serve.MOE_GEN)
+TRAIN_ARCH = "internvl2-2b"         # the GQA training path (SSM: SSM_ARCH)
 # every kernel wrapper; each serving run sets all counts to 0 before it
 # and holds each to what that path must launch
 WRAPPERS = {"K1": ops.flash_attention, "K2": ops.ssd_chunked,
@@ -305,6 +334,15 @@ GMM_CASES = GMM_PATH + [
     GmmCase("f 72", 4, 256, 512, 72, torch.bfloat16)]
 
 
+def zero_counts() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def counts() -> dict[str, int]:
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
 def sh(*cmd: str) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
@@ -432,6 +470,17 @@ def compare(got: torch.Tensor, want: torch.Tensor,
     d = (got.float() - want).abs()
     err, worst = d.max().item(), (d / (tol + tol * want.abs())).max().item()
     return err, worst if math.isfinite(err) else math.inf
+
+
+def worst_scaled(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """The worst |d| / (tol max|want| + tol |want|), as phase 8 judges fp32
+    K3: within tolerance where <= 1; inf on a shape or non-finite miss."""
+    if got.shape != want.shape:
+        return math.inf
+    want = want.to(got.device).float()
+    d = (got.float() - want).abs()
+    worst = (d / (tol * want.abs().max() + tol * want.abs())).max().item()
+    return worst if math.isfinite(d.max().item()) else math.inf
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -585,13 +634,6 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
           f"{n_params / 1e6:.3f} M parameters ({', '.join(types)}), built "
           f"in {time.perf_counter() - t0:.1f} s")
 
-    def counts() -> dict[str, int]:
-        return {name: w.launches for name, w in WRAPPERS.items()}
-
-    def zero() -> None:
-        for w in WRAPPERS.values():
-            w.launches = 0
-
     n_dec = gen - 1
     with torch.inference_mode():
         # warm-up request (cuBLAS handles, allocator), not counted
@@ -600,14 +642,14 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-        zero()
+        zero_counts()
         t0 = time.perf_counter()
         tok, logits, cache = serve.prefill(model, cache, prompts)
         torch.cuda.synchronize()
         ttft = time.perf_counter() - t0
         prefill_launches = counts()
 
-        zero()
+        zero_counts()
         t0 = time.perf_counter()
         rest, cache = serve.decode(model, cache, tok, prompt, n_dec)
         torch.cuda.synchronize()
@@ -870,9 +912,7 @@ def phase_k3() -> dict:
             tol = TOL[c.dtype]
             err, worst = compare(got, want, tol)
             scale = want.abs().max().item()
-            d_abs = (got.float() - want.float()).abs()
-            scaled = (d_abs / (tol * scale + tol * want.float().abs())
-                      ).max().item()
+            scaled = worst_scaled(got, want, tol)
             ok = (worst if c.dtype == torch.bfloat16 else scaled) <= 1.0
             print(f"K3 {c.name:26s} E{c.E} C{c.C} d{c.d} f{c.f} "
                   f"{str(c.dtype)[6:]:8s} [{gmm_kernel.tiling(c.C, c.dtype)}]"
@@ -886,7 +926,7 @@ def phase_k3() -> dict:
                 raise AssertionError(f"K3 disagrees with its plain version "
                                      f"at {c.name}")
             errs[c.name] = err
-            del x, w, got, want, d_abs
+            del x, w, got, want
 
         timed = {}
         for c in GMM_PATH:
@@ -1038,6 +1078,272 @@ def phase_moe_layer(run: Served) -> None:
                              f"plain route: {bad}")
 
 
+# ----------------------------------------------------------------------
+# training
+# ----------------------------------------------------------------------
+# the kernels' gradients: (kernel, shape) at two small shapes each, in bf16
+# and fp32.  K1: (B, S, H, K, hd), causal; K2: (B, L, H, G, P, N, Q); K3:
+# (E, C, d, f), C 72 on the 128 x 256 tiling
+GRAD_SHAPES = [("K1", (2, 128, 4, 2, 64)), ("K1", (1, 200, 4, 4, 128)),
+               ("K2", (2, 64, 8, 1, 16, 16, 8)),
+               ("K2", (1, 512, 4, 2, 64, 128, 256)),
+               ("K3", (4, 64, 128, 64)), ("K3", (8, 72, 256, 128))]
+# a small training step on the card against CPU copies: 1e-4 of each
+# tensor's max (fp32 sums in another order)
+STEP_TOL = 1e-4
+STEP_SEQ, STEP_BATCH = 32, 2
+# replayed steps against the first pass (bf16, atomics in the embedding's
+# backward): relative
+REPLAY_TOL = 1e-3
+
+
+def grad_case(kernel: str, shape: tuple, dtype: torch.dtype,
+              gen: torch.Generator):
+    """Leaf inputs on the card, the wrapper (through its Function) and the
+    plain version, each returning a tuple of outputs."""
+    def randn(*sh, dt=dtype):
+        return torch.randn(sh, generator=gen, device="cuda").to(dt)
+
+    if kernel == "K1":
+        B, S, H, K, hd = shape
+        ins = [randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd)]
+        return (ins, ops.flash_attention,
+                lambda *t: (ops.flash_attention(*t, causal=True),),
+                ops._plain_attention(True, None))
+    if kernel == "K2":
+        B, L, H, G, P, N, Q = shape
+        ins = [randn(B, L, H, P),
+               F.softplus(randn(B, L, H, dt=torch.float32)),
+               -torch.linspace(1.0, 16.0, H, device="cuda"),
+               randn(B, L, G, N), randn(B, L, G, N)]
+        return (ins, ops.ssd_chunked,
+                lambda *t: ops._SsdIntraChunk.apply(*t, Q),
+                ops._plain_intra_chunk(Q))
+    E, C, d, f = shape
+    return ([randn(E, C, d), randn(E, d, f)], ops.grouped_matmul,
+            lambda *t: (ops.grouped_matmul(*t),),
+            lambda x, w: (ref.gmm_ref(x, w),))
+
+
+def phase_grads() -> None:
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bad = []
+    for kernel, shape in GRAD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            ins, wrapper, kern, plain = grad_case(kernel, shape, dtype, gen)
+            ins = [t.requires_grad_() for t in ins]
+            before = wrapper.launches
+            got = kern(*ins)
+            launched = wrapper.launches - before
+            want = plain(*ins)
+            cots = [torch.randn(w.shape, generator=gen, device="cuda")
+                    .to(w.dtype) for w in want]
+            g_got = torch.autograd.grad(got, ins, cots)
+            g_want = torch.autograd.grad(want, ins, cots)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            worst = {"out": max(worst_scaled(a, b, tol)
+                                for a, b in zip(got, want))}
+            worst.update({f"d{i}": worst_scaled(a, b, tol)
+                          for i, (a, b) in enumerate(zip(g_got, g_want))})
+            ok = launched == 1 and max(worst.values()) <= 1.0
+            print(f"grad {kernel} {shape} {str(dtype)[6:]:8s}: launches "
+                  f"{launched} (want 1); worst |d| / (tol max|want| + tol "
+                  f"|want|), tol {tol:.0e}: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+                  + (" ok" if ok else " FAIL"))
+            if not ok:
+                bad.append(f"{kernel} {shape} {dtype}")
+    if bad:
+        raise AssertionError(f"kernel gradients disagree with autograd "
+                             f"through the plain versions: {bad}")
+
+
+class _KeepGrads:
+    """Wraps an optimizer: keeps a CPU copy of the gradients it is handed."""
+
+    def __init__(self, opt):
+        self.opt = opt
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().float().cpu() for k, g in grads.items()}
+        return self.opt.update(grads, state, params)
+
+
+def phase_small_train() -> None:
+    """One train step of each served family's smoke config in fp32, the
+    card against CPU copies.  An AdamW step moves an element by about lr
+    whatever its gradient's size, so where a CPU gradient is within the
+    gradient tolerance of 0 its sign is undetermined: such elements may
+    differ by up to 2 lr, and are counted."""
+    bad = []
+    for arch in (SERVE_ARCH, SSM_ARCH, MOE_ARCH):
+        cfg = configs.get_smoke(arch)
+        run = RunConfig()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = Model(cfg, run, dtype=torch.float32, device=dev)
+            if dev == "cuda":
+                model.init(torch.Generator(device="cuda").manual_seed(13))
+                weights = {k: v.cpu() for k, v in model.state_dict().items()}
+            else:
+                model.load_state_dict(weights)
+            opt = _KeepGrads(train.cli_optimizer(10))
+            state = {"params": model, "opt": opt.init(model)}
+            batch = SyntheticLM(DataConfig(cfg.vocab_size, STEP_SEQ,
+                                           STEP_BATCH, seed=13),
+                                dev).batch_at(0)
+            zero_counts()
+            state, metrics = train.make_train_step(model, opt, run)(state,
+                                                                    batch)
+            out[dev] = (float(metrics["loss"]), opt.grads,
+                        {k: v.detach().cpu() for k, v in
+                         model.named_parameters()}, counts())
+        loss, grads, params, launches = out["cuda"]
+        want_loss, want_grads, want_params, _ = out["cpu"]
+        lr = train.cli_optimizer(10).cfg.lr(1)
+        g_worst = max(worst_scaled(grads[k], want_grads[k], STEP_TOL)
+                      for k in want_grads)
+        p_worst, loose = 0.0, 0
+        for k, want in want_params.items():
+            d = (params[k] - want).abs()
+            lim = STEP_TOL * want.abs().max() + STEP_TOL * want.abs()
+            g = want_grads[k].abs()
+            zeroish = g <= STEP_TOL * g.max()
+            over = d > lim
+            loose += int((over & zeroish).sum())
+            p_worst = max(p_worst, (d / lim)[~zeroish].max().item()
+                          if (~zeroish).any() else 0.0)
+            if (d[over & zeroish] > 2 * lr * 1.01).any():
+                p_worst = math.inf
+        L = cfg.n_layers
+        want_launches = {"K1": 2 * L if cfg.n_heads else 0,
+                         "K2": 2 * L if cfg.ssm_state else 0,
+                         "K3": 6 * L if cfg.n_experts else 0}
+        ok = (abs(loss - want_loss) <= STEP_TOL * abs(want_loss)
+              and g_worst <= 1.0 and p_worst <= 1.0
+              and launches == want_launches)
+        print(f"train step {cfg.name} fp32 B{STEP_BATCH} S{STEP_SEQ}, card "
+              f"vs CPU: loss {loss:.6f} vs {want_loss:.6f}; worst |d| / "
+              f"(tol max + tol |want|), tol {STEP_TOL:.0e}: gradients "
+              f"{g_worst:.3f}, parameters after AdamW {p_worst:.3f} "
+              f"({loose} elements whose gradient is within tolerance of 0 "
+              f"moved otherwise, by at most 2 lr = {2 * lr:.2e}); launches "
+              f"{launches} (want {want_launches}: remat runs each forward "
+              f"twice) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(cfg.name)
+    if bad:
+        raise AssertionError(f"the train step on the card disagrees with "
+                             f"its CPU copy: {bad}")
+
+
+class _StepTimes(StepMonitor):
+    """The loop's per-step seconds, by step, replays included."""
+
+    def __init__(self):
+        super().__init__()
+        self.times: dict[int, list[float]] = {}
+
+    def record(self, step, seconds):
+        self.times.setdefault(step, []).append(seconds)
+        return super().record(step, seconds)
+
+
+def phase_train(arch: str) -> dict[str, int]:
+    """Full-width training through ``run_training`` with a restart."""
+    r = train.FULL_RUNS[arch]
+    cfg = configs.get(arch)
+    run = RunConfig()
+    t0 = time.perf_counter()
+    model = Model(cfg, run, dtype=torch.bfloat16, device="cuda")
+    opt = r.optimizer()
+    data = SyntheticLM(DataConfig(cfg.vocab_size, r.seq, r.batch), "cuda")
+    step_fn = train.make_train_step(model, opt, run)
+    n_params = sum(p.numel() for p in model.parameters())
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    print(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {n_params / 1e6:.3f} M parameters, "
+          f"bf16, remat; AdamW peak lr {r.peak_lr}, warmup "
+          f"{train.CLI_WARMUP}, decay {r.weight_decay}; B {r.batch} x S "
+          f"{r.seq}, {r.steps} steps, a "
+          f"checkpoint every {r.ckpt_every}, failure at step "
+          f"{r.fail_at_step}; built in {time.perf_counter() - t0:.1f} s; "
+          f"{shutil.disk_usage(ckpt_dir).free / 2**30:.1f} GiB free for "
+          f"checkpoints")
+    monitor, losses = _StepTimes(), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = run_training(
+            LoopConfig(total_steps=r.steps, ckpt_dir=ckpt_dir,
+                       ckpt_every=r.ckpt_every, keep=1,
+                       fail_at_step=r.fail_at_step),
+            train_step=step_fn,
+            init_state=lambda: train.init_train_state(
+                model, opt, run, torch.Generator(device="cuda").manual_seed(0)),
+            batch_at=data.batch_at, monitor=monitor,
+            on_step=lambda step, m: losses.append((step, float(m["loss"]))))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    steps_run = len(losses)
+    first_pass = [monitor.times[s][0] for s in range(1, r.steps)]
+    step_s = statistics.median(first_pass)
+    tokens = r.batch * r.seq
+    flops = train.model_flops(cfg, ShapeConfig("train", r.seq, r.batch,
+                                               "train"))
+    L = cfg.n_layers
+    want = {"K1": 2 * L * steps_run if cfg.n_heads else 0,
+            "K2": 2 * L * steps_run if cfg.ssm_state else 0, "K3": 0}
+    seen, replays = {}, []
+    for step, loss in losses:
+        if step in seen:
+            replays.append((step, seen[step], loss))
+        seen[step] = loss
+    hist = summary["loss_history"]
+    replay_err = max((abs(b - a) / abs(a) for _, a, b in replays),
+                     default=math.inf)
+    print(f"train {cfg.name}: step {1e3 * step_s:.3f} ms (median of steps "
+          f"1-{r.steps - 1}, first pass; step 0 "
+          f"{1e3 * monitor.times[0][0]:.3f} ms), {tokens / step_s:.1f} "
+          f"tokens/s, MFU {flops / step_s / BF16_FLOP_PER_S:.4f} "
+          f"(model_flops {flops:.4e} over step time and the dense bf16 peak "
+          f"{BF16_FLOP_PER_S:.3e}), peak memory {peak / 2**30:.3f} GiB; "
+          f"run wall {wall:.1f} s for {steps_run} steps (checkpoints "
+          f"included)")
+    print(f"train {cfg.name}: launches {launches} over {steps_run} steps "
+          f"(want {want}: 2 x {L} a step, remat); loss {hist[0]:.4f} -> "
+          f"{hist[-1]:.4f}; restarts {summary['restarts']}; replayed steps "
+          f"{[s for s, _, _ in replays]}: largest relative loss difference "
+          f"{replay_err:.3e} (tol {REPLAY_TOL:.0e})")
+    print(f"train {cfg.name}: losses {[round(l, 4) for _, l in losses]}")
+    bad = []
+    if summary["restarts"] != 1:
+        bad.append("restarts")
+    if not hist[-1] < hist[0]:
+        bad.append("loss did not fall")
+    if not all(math.isfinite(l) for _, l in losses):
+        bad.append("non-finite loss")
+    if not replays or replay_err > REPLAY_TOL:
+        bad.append("replayed losses")
+    if launches != want:
+        bad.append("launches")
+    del model, opt, step_fn, data
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"training {cfg.name} failed: {bad}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1056,6 +1362,11 @@ def main() -> int:
     launches.update(moe_launches)
     phase_moe_layer(run)
     del run
+    torch.cuda.empty_cache()
+    phase_grads()
+    phase_small_train()
+    launches.update(phase_train(SSM_ARCH))
+    launches.update(phase_train(TRAIN_ARCH))
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]

@@ -22,10 +22,16 @@ def _key(name: str) -> str:
     return name.replace(".", SEP)
 
 
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of t, float types as fp32 (exact for bf16), in one
+    device-to-host copy."""
+    dtype = torch.float32 if t.is_floating_point() else t.dtype
+    return t.detach().to("cpu", dtype, copy=True).numpy()
+
+
 def to_flat(model: nn.Module) -> dict[str, np.ndarray]:
     """Every parameter as an fp32 numpy array under its checkpoint key."""
-    return {_key(name): p.detach().float().cpu().numpy().copy()
-            for name, p in model.named_parameters()}
+    return {_key(name): host_copy(p) for name, p in model.named_parameters()}
 
 
 @torch.no_grad()

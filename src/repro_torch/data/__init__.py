@@ -1,0 +1,4 @@
+"""Deterministic synthetic data."""
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+__all__ = ["DataConfig", "SyntheticLM"]

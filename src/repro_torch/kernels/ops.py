@@ -5,6 +5,14 @@ it runs the kernel's plain version (``repro_torch.kernels.ref``); on a CUDA
 tensor it launches the kernel or raises, and never falls back.  Each
 wrapper counts its launches in a plain integer attribute (``.launches``),
 so a run can show that its main path went through the kernel.
+
+Each wrapper is differentiable.  On the CPU autograd goes through the plain
+version itself.  On the card an ``autograd.Function`` runs the kernel
+forward and, in its backward, recomputes the plain version from the saved
+inputs and takes its gradients (the standard recompute backward, as the
+JAX package's ``_flash_bwd`` does for flash attention; none of the
+reference's backwards is a Pallas kernel).  A run under
+``torch.utils.checkpoint`` launches each forward twice.
 """
 from __future__ import annotations
 
@@ -18,32 +26,88 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 
 
+def _recompute_grads(plain, inputs, needs, grads):
+    """Gradients of ``plain(*inputs)`` (a tuple of outputs) for ``grads``,
+    through autograd on detached copies of the inputs; None for an input
+    whose ``needs`` entry is False.  An output that depends on no such
+    input (K2's cum, where only x needs a gradient) is left out."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        wanted = [t for t in leaves if t.requires_grad]
+        outs = [(o, g) for o, g in zip(plain(*leaves), grads)
+                if o.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in outs], wanted,
+                                       [g for _, g in outs])
+                   if wanted else ())
+    return tuple(next(got) if t.requires_grad else None for t in leaves)
+
+
+def _plain_attention(causal, scale):
+    def plain(q, k, v):
+        return (_ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, scale=scale).transpose(1, 2),)
+    return plain
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        o = _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        flash_attention.launches += 1
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_grads(_plain_attention(ctx.causal, ctx.scale),
+                                ctx.saved_tensors, ctx.needs_input_grad[:3],
+                                (g,)) + (None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,S,H,hd]; k: [B,T,K,hd]; v: [B,T,K,hd_v] → [B,S,H,hd_v] (GQA).
 
-    Forward only: the recompute backward of the JAX wrapper waits for the
-    training slice, so a CUDA input that requires grad raises.
+    On the card: K1 forward; backward recomputes ``ref.flash_attention_ref``.
     """
     if q.device.type == "cpu":
-        o = _ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), causal=causal,
-                                     scale=scale)
-        return o.transpose(1, 2)
+        return _plain_attention(causal, scale)(q, k, v)[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, "
                          f"not {q.device}")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention has no backward on CUDA yet (ROADMAP Queue 1, "
-            "training slice); call it under torch.inference_mode()")
-    o = _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-    flash_attention.launches += 1
-    return o
+    return _FlashAttention.apply(q, k, v, causal, scale)
 
 
 flash_attention.launches = 0
+
+
+def _plain_intra_chunk(chunk):
+    def plain(xh, dt, A, Bm, Cm):
+        return _ref.ssd_intra_chunk_ref(*_ref.to_chunks(xh, dt, A, Bm, Cm,
+                                                        chunk))
+    return plain
+
+
+class _SsdIntraChunk(torch.autograd.Function):
+    """K2's (y, states, cum) from the model's (xh, dt, A, Bm, Cm); all three
+    outputs carry gradients (cum feeds the inter-chunk decays)."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(xh, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        out = _ssd.ssd_intra_chunk_fwd(xh, dt, A, Bm, Cm, chunk)
+        ssd_chunked.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, gy, gstates, gcum):
+        return _recompute_grads(_plain_intra_chunk(ctx.chunk),
+                                ctx.saved_tensors, ctx.needs_input_grad[:5],
+                                (gy, gstates, gcum)) + (None,)
 
 
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -55,8 +119,9 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     fp32), Bm/Cm: [B,L,G,N] with H % G == 0; init_state: [B,H,P,N] or None
     for zeros.  Returns (y [B,L,H,P] in xh's dtype, final state [B,H,P,N]
     fp32).  L must be a multiple of ``chunk``.  The inter-chunk recurrence
-    and its correction are linear and cheap, and stay plain PyTorch.
-    Forward only: a CUDA input that requires grad raises.
+    and its correction are linear and cheap, and stay plain PyTorch.  On
+    the card the intra-chunk term's backward recomputes
+    ``ref.ssd_intra_chunk_ref``.
     """
     Bsz, L, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -65,16 +130,9 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"chunk {chunk}")
     nc = L // chunk
     if xh.device.type == "cpu":
-        y_intra, states, cum = _ref.ssd_intra_chunk_ref(
-            *_ref.to_chunks(xh, dt, A, Bm, Cm, chunk))
+        y_intra, states, cum = _plain_intra_chunk(chunk)(xh, dt, A, Bm, Cm)
     elif xh.device.type == "cuda":
-        if any(t.requires_grad for t in (xh, dt, A, Bm, Cm)):
-            raise NotImplementedError(
-                "ssd_chunked has no backward on CUDA yet (ROADMAP Queue 1, "
-                "training slice); call it under torch.inference_mode()")
-        y_intra, states, cum = _ssd.ssd_intra_chunk_fwd(xh, dt, A, Bm, Cm,
-                                                        chunk)
-        ssd_chunked.launches += 1
+        y_intra, states, cum = _SsdIntraChunk.apply(xh, dt, A, Bm, Cm, chunk)
     else:
         raise ValueError(f"ssd_chunked runs on cpu or cuda, not {xh.device}")
 
@@ -107,27 +165,33 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_chunked.launches = 0
 
 
+class _GroupedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = _gmm.gmm_fwd(x, w)
+        grouped_matmul.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_grads(lambda x, w: (_ref.gmm_ref(x, w),),
+                                ctx.saved_tensors, ctx.needs_input_grad, (g,))
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [E,C,d]; w: [E,d,f] → [E,C,f] in x's dtype, summed in fp32: the
     per-expert products of the MoE layer, on K3.
 
     The JAX wrapper's ``block_c/block_f/block_d`` tile the TPU kernel; K3
-    picks its own tiles, so the port takes none.  Forward only: a CUDA
-    input that requires grad raises while grad mode is on (the experts'
-    weights are parameter slices, which keep ``requires_grad`` under
-    ``torch.inference_mode()``).
+    picks its own tiles, so the port takes none.  On the card the backward
+    recomputes ``ref.gmm_ref``.
     """
     if x.device.type == "cpu":
         return _ref.gmm_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "grouped_matmul has no backward on CUDA yet (ROADMAP Queue 1, "
-            "training slice); call it under torch.inference_mode()")
-    out = _gmm.gmm_fwd(x, w)
-    grouped_matmul.launches += 1
-    return out
+    return _GroupedMatmul.apply(x, w)
 
 
 grouped_matmul.launches = 0

@@ -1,4 +1,5 @@
-"""Shared model layers: init helpers, RMSNorm, RoPE, MLP variants.
+"""Shared model layers: init helpers, RMSNorm, RoPE, MLP variants, the
+cross-entropy loss.
 
 Plain functions on tensors, with parameters as dicts of tensors in the JAX
 package's layouts (dense weights ``[d_in, d_out]``, used as ``x @ W``), so
@@ -42,14 +43,48 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
 # ----------------------------------------------------------------------
 # norms
 # ----------------------------------------------------------------------
-def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
-            ) -> torch.Tensor:
-    """RMSNorm with fp32 internals; output in x's dtype (forward only: the
-    analytic backward waits for the training slice)."""
+def _rmsnorm_raw(w: torch.Tensor, x: torch.Tensor, eps: float
+                 ) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
     xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * w.float()).to(dt)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with the JAX package's analytic backward:
+
+        x̂ = x·rsqrt(mean x² + eps);  y = x̂·w
+        dw = Σ_batch g·x̂
+        dx = rsqrt(·) · ( g·w − x̂ · mean(g·w·x̂, -1) )
+
+    in fp32, with dx returned in x's dtype and dw in w's, so a bf16
+    activation's cotangent stays bf16 through the norm."""
+
+    @staticmethod
+    def forward(ctx, w, x, eps):
+        ctx.save_for_backward(w, x)
+        ctx.eps = eps
+        return _rmsnorm_raw(w, x, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, x = ctx.saved_tensors
+        xf, gf, wf = x.float(), g.float(), w.float()
+        ih = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                         + ctx.eps)
+        xhat = xf * ih
+        dw = torch.sum((gf * xhat).reshape(-1, x.shape[-1]), dim=0)
+        gw = gf * wf
+        dx = ih * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+        return dw.to(w.dtype), dx.to(x.dtype), None
+
+
+def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    """RMSNorm with fp32 internals; output in x's dtype, and a backward
+    that returns dx in x's dtype (``_RMSNorm``)."""
+    return _RMSNorm.apply(w, x, eps)
 
 
 # ----------------------------------------------------------------------
@@ -120,3 +155,24 @@ def mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         raise ValueError(kind)
     return h @ p["w_out"]
+
+
+# ----------------------------------------------------------------------
+# losses
+# ----------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean CE; logits [..., V] (any dtype, reduced in fp32), labels
+    int [...], optional mask [...] of weights.
+
+    The label logit is read with a gather, not a [.., V] one-hot: the same
+    value without an fp32 one-hot of the logits' size (3 GB at internvl2's
+    vocabulary of 92553, B 4 × S 2048)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - label_logit
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -14,6 +14,7 @@ them.
 
 The Model exposes:
 - ``init(generator)``               → fills the parameters, returns self
+- ``loss(batch)``                   → (scalar loss, metrics) for train_step
 - ``forward(batch)``                → logits (prefill)
 - ``init_cache(batch, max_len)``    → decode cache (nested lists of dicts)
 - ``decode_step(caches, tokens, index)`` → (logits, caches)
@@ -24,6 +25,7 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import device as _device
@@ -32,7 +34,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
-    dense_init, embed_init, mlp, mlp_init, mlp_shapes, rmsnorm,
+    cross_entropy, dense_init, embed_init, mlp, mlp_init, mlp_shapes,
+    rmsnorm,
 )
 
 
@@ -104,17 +107,24 @@ def _check_supported(cfg: ArchConfig) -> None:
             "MLA and MTP)")
 
 
+# RunConfig fields the port reads; the others name the ROADMAP item
+# (Queue 1) that would implement them
+_READ = ("attn_impl", "ssm_chunk", "remat", "microbatches", "logits_fp32")
+_UNREAD = {"opt_8bit": "item 4, optimizer and compression extras",
+           "grad_compression": "item 4, optimizer and compression extras"}
+
+
 def _check_run(run: RunConfig) -> None:
-    """The port reads only ``attn_impl`` and ``ssm_chunk`` so far.  Any
-    other field set away from its default would be ignored without a word,
-    so it raises."""
-    unread = [f.name for f in dataclasses.fields(run)
-              if f.name not in ("attn_impl", "ssm_chunk")
-              and getattr(run, f.name) != f.default]
+    """Any field the port does not read, set away from its default, raises
+    rather than be ignored without a word.  ``sync_mode`` stays
+    ``"barrier"``: on one card there is no gradient collective to order."""
+    unread = {f.name: _UNREAD.get(f.name, "item 5, multi-GPU sync")
+              for f in dataclasses.fields(run)
+              if f.name not in _READ and getattr(run, f.name) != f.default}
     if unread:
         raise NotImplementedError(
-            f"RunConfig fields {unread} are not implemented by the port yet "
-            "(ROADMAP Queue 1: the training slice, multi-GPU sync)")
+            f"RunConfig fields are not implemented by the port yet "
+            f"(ROADMAP Queue 1): {unread}")
 
 
 # ----------------------------------------------------------------------
@@ -272,36 +282,58 @@ class Model(nn.Module):
             x = x + y
         return x, aux
 
+    def _run_repeat(self, si: int, r: int, x, *, positions=None,
+                    caches=None, cache_index=None):
+        """Repeat r of segment si: each of its pattern's blocks in turn.
+        Returns (x, the MoE blocks' summed aux loss, or None)."""
+        total_aux = None
+        for j, spec in enumerate(self.segments_spec[si].pattern):
+            cache = None
+            if caches is not None:
+                cache = {name: {k: v[r] for k, v in c.items()}
+                         for name, c in caches[si][j].items()}
+            x, aux = self._apply_block(
+                self.segments[si][j].at(r), spec, x, positions=positions,
+                cache=cache, cache_index=cache_index)
+            if aux is not None:
+                total_aux = aux if total_aux is None else total_aux + aux
+        return x, total_aux
+
     def _run_segments(self, x, *, positions=None, caches=None,
                       cache_index=None):
         """Loop each segment over its repeats.  Returns (x, the MoE blocks'
-        summed aux loss: a 0-d fp32 tensor, or 0.0 without MoE blocks),
-        which the training slice will add to the loss.  Caches are written
-        in place."""
+        summed aux loss: a 0-d fp32 tensor, or 0.0 without MoE blocks).
+        Caches are written in place.  With ``run.remat`` and autograd
+        recording, each repeat runs under ``torch.utils.checkpoint``, as
+        JAX's ``jax.checkpoint`` wraps the scan body: its activations are
+        recomputed in the backward."""
+        remat = (self.run.remat and caches is None
+                 and torch.is_grad_enabled())
+        kw = dict(positions=positions, caches=caches, cache_index=cache_index)
         total_aux = 0.0
         for si, seg in enumerate(self.segments_spec):
             for r in range(seg.repeats):
-                for j, spec in enumerate(seg.pattern):
-                    cache = None
-                    if caches is not None:
-                        cache = {name: {k: v[r] for k, v in c.items()}
-                                 for name, c in caches[si][j].items()}
-                    x, aux = self._apply_block(
-                        self.segments[si][j].at(r), spec, x,
-                        positions=positions, cache=cache,
-                        cache_index=cache_index)
-                    if aux is not None:
-                        total_aux = total_aux + aux
+                if remat:
+                    x, aux = torch.utils.checkpoint.checkpoint(
+                        self._run_repeat, si, r, x, use_reentrant=False,
+                        **kw)
+                else:
+                    x, aux = self._run_repeat(si, r, x, **kw)
+                if aux is not None:
+                    total_aux = total_aux + aux
         return x, total_aux
 
     # ------------------------------------------------------------------
-    def _embed_inputs(self, batch: dict) -> torch.Tensor:
-        """Token embedding, after the projected vision prefix if any."""
+    def _embed_inputs(self, batch: dict):
+        """Token embedding, after the projected vision prefix if any.
+        Returns (x, the prefix's length)."""
         x = self.embed[batch["tokens"]].to(self.dtype)
+        n_prefix = 0
         if self.cfg.vision_embed_dim and "vision_embeds" in batch:
             v = batch["vision_embeds"].to(self.dtype) @ self.vis_proj
             x = torch.cat([v, x], dim=1)
-        return x
+            n_prefix = v.shape[1]
+        return x, n_prefix
 
     def _head(self, x):
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
@@ -311,10 +343,32 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
-        x = self._embed_inputs(batch)
+        x, _ = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = self._run_segments(x, positions=positions)
         return self._head(x)
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Next-token CE over the text region (after any vision prefix),
+        plus ``router_aux_weight`` × the MoE blocks' aux loss.  Returns
+        (loss, {"ce", "aux", "loss"}), 0-d fp32 tensors."""
+        cfg = self.cfg
+        if cfg.mtp:
+            raise NotImplementedError(
+                f"{cfg.name}: the multi-token-prediction head is not ported "
+                "yet (ROADMAP Queue 1 item 2, MLA and MTP)")
+        x, n_prefix = self._embed_inputs(batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = self._run_segments(x, positions=positions)
+        tokens = batch["tokens"]
+        h = x[:, n_prefix:]                       # text region only
+        logits = self._head(h[:, :-1])
+        if self.run.logits_fp32:
+            logits = logits.float()
+        ce = cross_entropy(logits, tokens[:, 1:])
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+        loss = ce + cfg.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux, "loss": loss}
 
     # ------------------------------------------------------------------
     # decode

@@ -1,5 +1,7 @@
 """The port on the card: K1, K2 and K3 built from source and held against
-their plain versions, and the serving paths counting their launches.
+their plain versions (forward, and the gradients of their recompute
+backwards), the serving paths counting their launches, and the loss's
+gradients on the card against CPU copies.
 
 Run on a machine with a CUDA device (it imports no JAX):
 
@@ -76,10 +78,100 @@ def test_kernel_matches_plain(cuda, B, S, H, K, hd, hdv, causal, dtype):
                                **TOL[dtype])
 
 
-def test_kernel_refuses_grad(cuda):
-    q = torch.zeros((1, 64, 2, 16), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(q, q.detach(), q.detach())
+def test_kernel_takes_grad(cuda):
+    """A CUDA input that requires grad runs K1 (counted) and has a
+    gradient: the recompute backward through the plain version."""
+    q = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
+    before = ops.flash_attention.launches
+    o = ops.flash_attention(q, q.detach(), q.detach())
+    assert ops.flash_attention.launches == before + 1
+    (g,) = torch.autograd.grad(o.sum(), q)
+    assert g.shape == q.shape and torch.isfinite(g).all()
+
+
+def _grad_inputs(kernel, shape, dtype, device):
+    rng = np.random.default_rng(7)
+
+    def randn(*sh, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)
+                                ).to(device, dt)
+    if kernel == "K1":
+        B, S, H, K, hd = shape
+        ins = [randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd)]
+        return (ins, ops.flash_attention,
+                lambda *t: (ops.flash_attention(*t, causal=True),),
+                ops._plain_attention(True, None))
+    if kernel == "K2":
+        B, L, H, G, P, N, Q = shape
+        ins = [randn(B, L, H, P),
+               torch.nn.functional.softplus(randn(B, L, H, dt=torch.float32)),
+               -torch.linspace(1.0, 16.0, H, device=device),
+               randn(B, L, G, N), randn(B, L, G, N)]
+        return (ins, ops.ssd_chunked,
+                lambda *t: ops._SsdIntraChunk.apply(*t, Q),
+                ops._plain_intra_chunk(Q))
+    E, C, d, f = shape
+    return ([randn(E, C, d), randn(E, d, f)], ops.grouped_matmul,
+            lambda *t: (ops.grouped_matmul(*t),),
+            lambda x, w: (ref.gmm_ref(x, w),))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel,shape", [
+    ("K1", (2, 128, 4, 2, 64)), ("K1", (1, 200, 4, 4, 128)),
+    ("K2", (2, 64, 8, 1, 16, 16, 8)), ("K2", (1, 512, 4, 2, 64, 128, 256)),
+    ("K3", (4, 64, 128, 64)), ("K3", (8, 72, 256, 128)),
+])
+def test_kernel_gradients_match_plain(cuda, kernel, shape, dtype):
+    """Each kernel through its autograd.Function (forward on the kernel,
+    one launch counted; backward recomputing the plain version) against
+    autograd through the plain version on the card: the forward, and the
+    gradient of every input, within tests/test_kernels.py:15's tolerance
+    with its absolute part scaled by max|want| (as chip_smoke.py's
+    gradient phase)."""
+    ins, wrapper, kern, plain = _grad_inputs(kernel, shape, dtype, cuda)
+    ins = [t.requires_grad_() for t in ins]
+    before = wrapper.launches
+    got = kern(*ins)
+    assert wrapper.launches == before + 1
+    want = plain(*ins)
+    rng = np.random.default_rng(8)
+    cots = [torch.from_numpy(rng.standard_normal(tuple(w.shape),
+                                                 dtype=np.float32))
+            .to(cuda, w.dtype) for w in want]
+    pairs = list(zip(got, want)) + list(zip(
+        torch.autograd.grad(got, ins, cots),
+        torch.autograd.grad(want, ins, cots)))
+    tol = TOL[dtype]["rtol"]
+    for a, b in pairs:
+        b = b.float()
+        torch.testing.assert_close(a.float(), b, rtol=tol,
+                                   atol=tol * b.abs().max().item())
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-130m",
+                                  "olmoe-1b-7b"])
+def test_loss_and_grads_on_the_card_match_cpu(cuda, arch):
+    """Model.loss and every gradient of a smoke config in fp32 (remat on:
+    each kernel forward launched twice a layer) on the card against CPU
+    copies, within 1e-4 of each tensor's max."""
+    cfg = configs.get_smoke(arch)
+    model = Model(cfg, dtype=torch.float32,
+                  device=cuda).init(torch.Generator(cuda).manual_seed(0))
+    cpu = Model(cfg, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(1))
+    out = []
+    for m in (model, cpu):
+        loss, _ = m.loss({"tokens": tokens.to(m.device)})
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        out.append((loss.item(), [g.cpu() for g in grads]))
+    (loss, grads), (want_loss, want_grads) = out
+    assert loss == pytest.approx(want_loss, rel=1e-4)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * w.abs().max().item())
 
 
 def test_serving_prefill_runs_k1_once_per_layer(cuda):
@@ -184,7 +276,7 @@ def test_ssd_path_names_the_kernel_each_input_runs(cuda):
         "fp32 CUDA cores")
 
 
-def test_ssd_chunked_counts_launches_and_refuses_grad(cuda):
+def test_ssd_chunked_counts_launches_and_takes_grad(cuda):
     x, dt, A, Bm, Cm = ssd_inputs(1, 32, 4, 1, 16, 16, torch.float32, cuda)
     before = ops.ssd_chunked.launches
     with torch.inference_mode():
@@ -193,9 +285,13 @@ def test_ssd_chunked_counts_launches_and_refuses_grad(cuda):
     assert ops.ssd_chunked.launches == before + 1
     torch.testing.assert_close(y, want_y, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(final, want_final, rtol=1e-3, atol=1e-3)
-    with pytest.raises(NotImplementedError):
-        ops.ssd_chunked(x.detach().clone().requires_grad_(), dt, A, Bm, Cm,
-                        8)
+    xg = x.detach().clone().requires_grad_()
+    (g,) = torch.autograd.grad(ops.ssd_chunked(xg, dt, A, Bm, Cm, 8)[0]
+                               .sum(), xg)
+    xc = x.detach().cpu().requires_grad_()
+    (want_g,) = torch.autograd.grad(ops.ssd_chunked(
+        xc, dt.cpu(), A.cpu(), Bm.cpu(), Cm.cpu(), 8)[0].sum(), xc)
+    torch.testing.assert_close(g.cpu(), want_g, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("init", [False, True])
@@ -295,11 +391,12 @@ def test_grouped_matmul_matches_plain(cuda, E, C, d, f, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
-def test_grouped_matmul_refuses_grad_and_bad_shapes(cuda):
+def test_grouped_matmul_takes_grad_and_refuses_bad_shapes(cuda):
     x = torch.zeros((2, 8, 16), device=cuda)
     w = torch.zeros((2, 16, 8), device=cuda)
-    with pytest.raises(NotImplementedError):
-        ops.grouped_matmul(x.clone().requires_grad_(), w)
+    xg = x.clone().requires_grad_()
+    (g,) = torch.autograd.grad(ops.grouped_matmul(xg, w).sum(), xg)
+    assert g.shape == x.shape
     with pytest.raises(ValueError, match="multiples of 8"):
         ops.grouped_matmul(torch.zeros((2, 8, 12), device=cuda),
                            torch.zeros((2, 12, 8), device=cuda))

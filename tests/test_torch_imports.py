@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
                     for p in (SRC / "repro_torch").rglob("*.py")) \
-    + ["chip_smoke.py"]
+    + ["chip_smoke.py", "examples/train_lm_torch.py"]
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -48,7 +48,11 @@ def test_port_modules_import_without_jax_or_repro():
                 "repro_torch.kernels.nvcc", "repro_torch.models.ssm",
                 "repro_torch.models.model",
                 "repro_torch.launch.serve", "repro_torch.checkpoint.bridge",
-                "repro_torch.configs.deepseek_7b"):
+                "repro_torch.configs.deepseek_7b", "repro_torch.optim",
+                "repro_torch.optim.adamw", "repro_torch.data",
+                "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
+                "repro_torch.launch.train", "repro_torch.launch.profile_train",
+                "repro_torch.runtime", "repro_torch.runtime.fault"):
         assert mod in out["mods"]
 
 

@@ -229,10 +229,18 @@ def test_unported_blocks_name_their_roadmap_item(arch, item):
 
 @pytest.mark.parametrize("field,value", [
     ("remat", False), ("microbatches", 4), ("logits_fp32", False),
-    ("fsdp", True), ("sync_mode", "bucketed"),
+    ("fsdp", True), ("sync_mode", "bucketed"), ("opt_8bit", True),
+    ("grad_compression", True),
 ])
 def test_unimplemented_run_options_raise(field, value):
+    """The fields the training step reads (``remat``, ``microbatches``,
+    ``logits_fp32``) build; every other one set away from its default
+    raises, naming itself."""
     run = dataclasses.replace(TRunConfig(), **{field: value})
+    if field in ("remat", "microbatches", "logits_fp32"):
+        tm = TModel(tconfigs.get_smoke("deepseek-7b"), run, device="cpu")
+        assert getattr(tm.run, field) == value
+        return
     with pytest.raises(NotImplementedError, match=field):
         TModel(tconfigs.get_smoke("deepseek-7b"), run, device="cpu")
 

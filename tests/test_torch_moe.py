@@ -386,7 +386,7 @@ def test_summed_aux_matches_jax_loss_metric(arch, tmp_path):
     tokens = _tokens(jm.cfg, 2, 16, seed=3)
     _, metrics = jax.jit(jm.loss)(params, {"tokens": jnp.asarray(tokens)})
     with torch.no_grad():
-        x = tm._embed_inputs({"tokens": torch.from_numpy(tokens).long()})
+        x, _ = tm._embed_inputs({"tokens": torch.from_numpy(tokens).long()})
         _, aux = tm._run_segments(x, positions=torch.arange(16))
     assert aux.dtype == torch.float32 and aux.dim() == 0
     np.testing.assert_allclose(float(aux), float(metrics["aux"]), rtol=1e-5)
