@@ -69,7 +69,7 @@ class FullRun:
 # internvl2-2b's language model through K1, the largest GQA model whose
 # training state (bf16 parameters and gradients, fp32 moments: 12 B a
 # parameter) fits one card, with examples/train_lm.py's AdamW (the CLI's
-# peak 3e-3 made its loss rise over 12 steps: PERF.md, PR 17)
+# peak 3e-3 made its loss rise over 12 steps: PERF.md §6)
 FULL_RUNS = {r.arch: r for r in (
     FullRun("mamba2-130m", 8, 4096, 30, 10, 15),
     FullRun("internvl2-2b", 4, 2048, 12, 4, 6, peak_lr=1e-3,

@@ -8,6 +8,10 @@ max|g| (sums in another order); in bf16 against JAX's fp32 model on the
 same weights, as ``test_loss_and_grads_match_jax`` says.
 """
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -374,8 +378,14 @@ def test_check_run_still_refuses(field, value, item):
         TModel(tconfigs.get_smoke("deepseek-7b"), run, device="cpu")
 
 
-def test_train_cli_runs_on_cpu(tmp_path, capsys):
-    summary = ttrain.main(["--device", "cpu", "--smoke", "--steps", "3",
-                           "--ckpt-dir", str(tmp_path / "ck")])
-    assert summary["completed"] and len(summary["loss_history"]) == 3
-    assert "done: 3 steps" in capsys.readouterr().out
+def test_train_cli_runs_on_cpu(tmp_path):
+    """``python -m repro_torch.launch.train --device cpu --smoke --steps 3``
+    in a fresh interpreter (which imports no JAX)."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--smoke", "--steps", "3", "--ckpt-dir", str(tmp_path / "ck")],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert proc.returncode == 0, proc.stderr
+    assert "done: 3 steps" in proc.stdout and "restarts=0" in proc.stdout
