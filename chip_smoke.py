@@ -12,9 +12,10 @@ Phases (each raises on failure):
    at the serving prefill shape and at GQA, MQA, non-causal, small and
    unequal head-dim and fp32 shapes, and at the edges of its tensor-core
    tilings (S one under and over a 64-row tile, hd 8 and 40, hd_v 256, MLA's
-   192/128 at S 1024, GQA 4:1 at the serving shape), each with the tiling
-   it ran; and its time beside the plain version,
-   ``F.scaled_dot_product_attention`` (a yardstick only) and its bound;
+   192/128 at S 1024, GQA 4:1 at the serving shape), and at internvl2-2b's
+   training shape (GQA 2:1, S 2048), each with the tiling it ran; and its
+   time beside the plain version, ``F.scaled_dot_product_attention`` (a
+   yardstick only) and its bound;
 3. on a small input (the smoke config, fp32), the one-call prefill through
    K1 against token-by-token decode on the plain path;
 4. serve deepseek-7b at full width (bf16, random weights from seed 0):
@@ -80,9 +81,10 @@ Phases (each raises on failure):
 
 12. gradients: K1, K2 and K3 through their ``autograd.Function``s on the
    card (forward on the kernel, backward recomputing the plain version),
-   in bf16 and fp32 at two small shapes each, forward and every input
-   gradient against autograd through the plain version on the card, one
-   launch counted per forward;
+   in bf16 and fp32 at two small shapes each and at the shapes phases 14
+   and 15 give K2 and K1, forward and every input gradient against
+   autograd through the plain version on the card, one launch counted per
+   forward;
 13. one step of ``launch.train.make_train_step`` on the deepseek-7b,
    mamba2-130m and olmoe-1b-7b smoke configs in fp32 on the card against
    CPU copies: loss, every gradient and the parameters after AdamW;
@@ -92,12 +94,14 @@ Phases (each raises on failure):
    layer a step: remat recomputes it) with the plain recompute backward;
 15. train internvl2-2b's language model at full width (bf16, remat, text
    only, B 4 × S 2048): 12 steps, a checkpoint every 4, a failure at step
-   6, with examples/train_lm.py's AdamW; K1 forward twice a layer a step.
+   6, with the CLI's AdamW at peak lr 1e-3; K1 forward twice a layer a
+   step.
    Each full-width run prints its median step time, tokens/s, MFU, peak
    memory, launches a step, first and last loss and restarts, and checks
-   one restart, a falling loss, finite losses and that the steps replayed
-   from the checkpoint give the first pass's losses.  The launches of
-   both runs count in the JSON line, beside the serving paths'.
+   one restart, a falling loss, finite losses, that the steps replayed
+   from the checkpoint give the first pass's losses, and that the loss on
+   a held-out batch fell by more than REPLAY_TOL of itself.  The launches
+   of both runs count in the JSON line, beside the serving paths'.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  With no
@@ -287,6 +291,9 @@ CASES = [
          torch.bfloat16),
     Case("gqa 4:1, serving shape", SERVE_BATCH, SERVE_PROMPT, 32, 8, 128,
          128, True, torch.bfloat16),
+    # internvl2-2b's training forward (phase 15): GQA 2:1 at S 2048
+    Case("train internvl2-2b", 4, 2048, 16, 8, 128, 128, True,
+         torch.bfloat16),
     Case("fp32", 2, 300, 4, 2, 128, 128, True, torch.float32),
     Case("fp32 hd 256, non-causal", 1, 130, 2, 1, 256, 256, False,
          torch.float32),
@@ -1081,19 +1088,24 @@ def phase_moe_layer(run: Served) -> None:
 # ----------------------------------------------------------------------
 # training
 # ----------------------------------------------------------------------
-# the kernels' gradients: (kernel, shape) at two small shapes each, in bf16
-# and fp32.  K1: (B, S, H, K, hd), causal; K2: (B, L, H, G, P, N, Q); K3:
-# (E, C, d, f), C 72 on the 128 x 256 tiling
+# the kernels' gradients: (kernel, shape) at two small shapes each and at
+# the shapes the full-width training runs give K1 and K2 (phases 14-15),
+# in bf16 and fp32.  K1: (B, S, H, K, hd), causal; K2: (B, L, H, G, P, N,
+# Q); K3: (E, C, d, f), C 72 on the 128 x 256 tiling
 GRAD_SHAPES = [("K1", (2, 128, 4, 2, 64)), ("K1", (1, 200, 4, 4, 128)),
+               ("K1", (4, 2048, 16, 8, 128)),
                ("K2", (2, 64, 8, 1, 16, 16, 8)),
                ("K2", (1, 512, 4, 2, 64, 128, 256)),
+               ("K2", (8, 4096, 24, 1, 64, 128, 256)),
                ("K3", (4, 64, 128, 64)), ("K3", (8, 72, 256, 128))]
 # a small training step on the card against CPU copies: 1e-4 of each
 # tensor's max (fp32 sums in another order)
 STEP_TOL = 1e-4
 STEP_SEQ, STEP_BATCH = 32, 2
 # replayed steps against the first pass (bf16, atomics in the embedding's
-# backward): relative
+# backward): relative.  A run has learned when its held-out loss
+# (train.held_out_loss) fell by more than this share, the difference the
+# script accepts between two runs of the same steps
 REPLAY_TOL = 1e-3
 
 
@@ -1268,13 +1280,17 @@ def phase_train(arch: str) -> dict[str, int]:
     print(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {n_params / 1e6:.3f} M parameters, "
           f"bf16, remat; AdamW peak lr {r.peak_lr}, warmup "
-          f"{train.CLI_WARMUP}, decay {r.weight_decay}; B {r.batch} x S "
+          f"{train.CLI_WARMUP}, decay {train.CLI_DECAY}; B {r.batch} x S "
           f"{r.seq}, {r.steps} steps, a "
           f"checkpoint every {r.ckpt_every}, failure at step "
           f"{r.fail_at_step}; built in {time.perf_counter() - t0:.1f} s; "
           f"{shutil.disk_usage(ckpt_dir).free / 2**30:.1f} GiB free for "
           f"checkpoints")
     monitor, losses = _StepTimes(), []
+    # the initial state as run_training's init_state makes it, for the
+    # held-out loss before the run
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    held_before = train.held_out_loss(model, data)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -1294,6 +1310,7 @@ def phase_train(arch: str) -> dict[str, int]:
     wall = time.perf_counter() - t0
     launches = counts()
     peak = torch.cuda.max_memory_allocated()
+    held_after = train.held_out_loss(model, data)
 
     steps_run = len(losses)
     first_pass = [monitor.times[s][0] for s in range(1, r.steps)]
@@ -1326,11 +1343,18 @@ def phase_train(arch: str) -> dict[str, int]:
           f"{[s for s, _, _ in replays]}: largest relative loss difference "
           f"{replay_err:.3e} (tol {REPLAY_TOL:.0e})")
     print(f"train {cfg.name}: losses {[round(l, 4) for _, l in losses]}")
+    held_drop = (held_before - held_after) / held_before
+    print(f"train {cfg.name}: held-out batch (step {train.HELD_OUT_STEP} "
+          f"of the stream) loss {held_before:.4f} before the run, "
+          f"{held_after:.4f} after: fell by {held_drop:.3e} of it (must "
+          f"exceed {REPLAY_TOL:.0e})")
     bad = []
     if summary["restarts"] != 1:
         bad.append("restarts")
     if not hist[-1] < hist[0]:
         bad.append("loss did not fall")
+    if not held_drop > REPLAY_TOL:
+        bad.append("held-out loss did not fall")
     if not all(math.isfinite(l) for _, l in losses):
         bad.append("non-finite loss")
     if not replays or replay_err > REPLAY_TOL:

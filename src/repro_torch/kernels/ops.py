@@ -11,7 +11,9 @@ version itself.  On the card an ``autograd.Function`` runs the kernel
 forward and, in its backward, recomputes the plain version from the saved
 inputs and takes its gradients (the standard recompute backward, as the
 JAX package's ``_flash_bwd`` does for flash attention; none of the
-reference's backwards is a Pallas kernel).  A run under
+reference's backwards is a Pallas kernel).  Where autograd records nothing
+(grad mode off, as when serving, or no input requiring a gradient) the
+wrapper launches the kernel without the ``Function``.  A run under
 ``torch.utils.checkpoint`` launches each forward twice.
 """
 from __future__ import annotations
@@ -24,6 +26,11 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gmm as _gmm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these inputs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _recompute_grads(plain, inputs, needs, grads):
@@ -50,14 +57,18 @@ def _plain_attention(causal, scale):
     return plain
 
 
+def _launch_flash(q, k, v, causal, scale):
+    o = _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    flash_attention.launches += 1
+    return o
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
-        o = _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-        flash_attention.launches += 1
-        return o
+        return _launch_flash(q, k, v, causal, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -78,6 +89,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, "
                          f"not {q.device}")
+    if not _needs_grad(q, k, v):
+        return _launch_flash(q, k, v, causal, scale)
     return _FlashAttention.apply(q, k, v, causal, scale)
 
 
@@ -91,6 +104,12 @@ def _plain_intra_chunk(chunk):
     return plain
 
 
+def _launch_intra_chunk(xh, dt, A, Bm, Cm, chunk):
+    out = _ssd.ssd_intra_chunk_fwd(xh, dt, A, Bm, Cm, chunk)
+    ssd_chunked.launches += 1
+    return out
+
+
 class _SsdIntraChunk(torch.autograd.Function):
     """K2's (y, states, cum) from the model's (xh, dt, A, Bm, Cm); all three
     outputs carry gradients (cum feeds the inter-chunk decays)."""
@@ -99,9 +118,7 @@ class _SsdIntraChunk(torch.autograd.Function):
     def forward(ctx, xh, dt, A, Bm, Cm, chunk):
         ctx.save_for_backward(xh, dt, A, Bm, Cm)
         ctx.chunk = chunk
-        out = _ssd.ssd_intra_chunk_fwd(xh, dt, A, Bm, Cm, chunk)
-        ssd_chunked.launches += 1
-        return out
+        return _launch_intra_chunk(xh, dt, A, Bm, Cm, chunk)
 
     @staticmethod
     def backward(ctx, gy, gstates, gcum):
@@ -132,7 +149,9 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if xh.device.type == "cpu":
         y_intra, states, cum = _plain_intra_chunk(chunk)(xh, dt, A, Bm, Cm)
     elif xh.device.type == "cuda":
-        y_intra, states, cum = _SsdIntraChunk.apply(xh, dt, A, Bm, Cm, chunk)
+        intra = (_SsdIntraChunk.apply if _needs_grad(xh, dt, A, Bm, Cm)
+                 else _launch_intra_chunk)
+        y_intra, states, cum = intra(xh, dt, A, Bm, Cm, chunk)
     else:
         raise ValueError(f"ssd_chunked runs on cpu or cuda, not {xh.device}")
 
@@ -165,13 +184,17 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_chunked.launches = 0
 
 
+def _launch_gmm(x, w):
+    out = _gmm.gmm_fwd(x, w)
+    grouped_matmul.launches += 1
+    return out
+
+
 class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        out = _gmm.gmm_fwd(x, w)
-        grouped_matmul.launches += 1
-        return out
+        return _launch_gmm(x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -191,6 +214,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return _ref.gmm_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul runs on cpu or cuda, not {x.device}")
+    if not _needs_grad(x, w):
+        return _launch_gmm(x, w)
     return _GroupedMatmul.apply(x, w)
 
 

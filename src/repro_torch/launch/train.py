@@ -36,22 +36,21 @@ from repro_torch.models import Model
 from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
 
 
-CLI_LR, CLI_WARMUP = 3e-3, 20
+CLI_LR, CLI_WARMUP, CLI_DECAY = 3e-3, 20, 0.1
 
 
-def cli_optimizer(steps: int, peak_lr: float = CLI_LR,
-                  weight_decay: float = 0.1) -> AdamW:
+def cli_optimizer(steps: int, peak_lr: float = CLI_LR) -> AdamW:
     """The CLI's AdamW: a cosine from ``peak_lr`` after ``CLI_WARMUP``
-    steps (``examples/train_lm.py`` takes 1e-3 and decay 0.01)."""
+    steps, weight decay ``CLI_DECAY``."""
     return AdamW(AdamWConfig(
         lr=cosine_schedule(peak_lr, warmup=CLI_WARMUP, total=steps),
-        weight_decay=weight_decay))
+        weight_decay=CLI_DECAY))
 
 
 @dataclasses.dataclass(frozen=True)
 class FullRun:
     """A full-width training run on one card (bf16, remat, text only), as
-    ``chip_smoke.py`` and ``profile_train`` drive it."""
+    ``chip_smoke.py``, ``profile_train`` and ``lr_probe`` drive it."""
     arch: str
     batch: int
     seq: int
@@ -59,21 +58,33 @@ class FullRun:
     ckpt_every: int
     fail_at_step: int
     peak_lr: float = CLI_LR
-    weight_decay: float = 0.1
 
     def optimizer(self) -> AdamW:
-        return cli_optimizer(self.steps, self.peak_lr, self.weight_decay)
+        return cli_optimizer(self.steps, self.peak_lr)
 
 
 # mamba2-130m through K2, the CLI's default arch, with the CLI's AdamW;
 # internvl2-2b's language model through K1, the largest GQA model whose
 # training state (bf16 parameters and gradients, fp32 moments: 12 B a
-# parameter) fits one card, with examples/train_lm.py's AdamW (the CLI's
-# peak 3e-3 made its loss rise over 12 steps: PERF.md §6)
+# parameter) fits one card, at peak lr 1e-3: of 3e-3, 2e-3 and 1e-3 only
+# 1e-3 lowers the held-out loss in 12 steps, in fp32 as in bf16
+# (``lr_probe``, PERF.md §6)
 FULL_RUNS = {r.arch: r for r in (
     FullRun("mamba2-130m", 8, 4096, 30, 10, 15),
-    FullRun("internvl2-2b", 4, 2048, 12, 4, 6, peak_lr=1e-3,
-            weight_decay=0.01))}
+    FullRun("internvl2-2b", 4, 2048, 12, 4, 6, peak_lr=1e-3))}
+
+
+# a batch of the stream that no run here trains on (runs take steps from
+# 0): the loss on it before and after a run shows whether the run learned,
+# free of the batch-to-batch spread of the training losses
+HELD_OUT_STEP = 10**6
+
+
+def held_out_loss(model: Model, data: SyntheticLM) -> float:
+    """``model.loss`` on the stream's batch at ``HELD_OUT_STEP``, without
+    gradients."""
+    with torch.no_grad():
+        return float(model.loss(data.batch_at(HELD_OUT_STEP))[0])
 
 
 def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:

@@ -84,7 +84,9 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
     """RMSNorm with fp32 internals; output in x's dtype, and a backward
     that returns dx in x's dtype (``_RMSNorm``)."""
-    return _RMSNorm.apply(w, x, eps)
+    if torch.is_grad_enabled() and (w.requires_grad or x.requires_grad):
+        return _RMSNorm.apply(w, x, eps)
+    return _rmsnorm_raw(w, x, eps)
 
 
 # ----------------------------------------------------------------------

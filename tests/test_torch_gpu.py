@@ -65,6 +65,7 @@ def _inputs(B, S, H, K, hd, hdv, dtype, device):
     (1, 200, 4, 4, 64, 256, False, torch.bfloat16),
     (1, 1024, 16, 16, 192, 128, True, torch.bfloat16),
     (4, 1024, 32, 8, 128, 128, True, torch.bfloat16),
+    (4, 2048, 16, 8, 128, 128, True, torch.bfloat16),   # internvl2 training
 ])
 def test_kernel_matches_plain(cuda, B, S, H, K, hd, hdv, causal, dtype):
     q, k, v = _inputs(B, S, H, K, hd, hdv, dtype, cuda)
@@ -119,7 +120,9 @@ def _grad_inputs(kernel, shape, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("kernel,shape", [
     ("K1", (2, 128, 4, 2, 64)), ("K1", (1, 200, 4, 4, 128)),
+    ("K1", (4, 2048, 16, 8, 128)),              # internvl2-2b training
     ("K2", (2, 64, 8, 1, 16, 16, 8)), ("K2", (1, 512, 4, 2, 64, 128, 256)),
+    ("K2", (8, 4096, 24, 1, 64, 128, 256)),     # mamba2-130m training
     ("K3", (4, 64, 128, 64)), ("K3", (8, 72, 256, 128)),
 ])
 def test_kernel_gradients_match_plain(cuda, kernel, shape, dtype):
@@ -147,6 +150,40 @@ def test_kernel_gradients_match_plain(cuda, kernel, shape, dtype):
         b = b.float()
         torch.testing.assert_close(a.float(), b, rtol=tol,
                                    atol=tol * b.abs().max().item())
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("K1", (2, 128, 4, 2, 64)), ("K2", (1, 512, 4, 2, 64, 128, 256)),
+    ("K3", (8, 72, 256, 128))])
+def test_wrapper_launches_directly_where_autograd_records_nothing(
+        cuda, kernel, shape):
+    """Under inference_mode or no_grad, or on inputs that need no gradient,
+    a wrapper launches its kernel without its autograd.Function: one
+    launch counted, no grad_fn, and the same output as through the
+    Function."""
+    ins, _, _, _ = _grad_inputs(kernel, shape, torch.bfloat16, cuda)
+    if kernel == "K1":
+        wrapper, call = ops.flash_attention, ops.flash_attention
+    elif kernel == "K2":
+        wrapper = ops.ssd_chunked
+        call = lambda *t: ops.ssd_chunked(*t, shape[-1])   # noqa: E731
+    else:
+        wrapper, call = ops.grouped_matmul, ops.grouped_matmul
+
+    def outs(*t):
+        out = call(*t)
+        return out if isinstance(out, tuple) else (out,)
+
+    want = [o.detach() for o in outs(*[t.clone().requires_grad_()
+                                       for t in ins])]
+    for mode in (torch.inference_mode, torch.no_grad, torch.enable_grad):
+        with mode():
+            before = wrapper.launches
+            got = outs(*ins)
+            assert wrapper.launches == before + 1
+        assert all(o.grad_fn is None for o in got)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-130m",

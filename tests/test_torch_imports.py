@@ -52,7 +52,7 @@ def test_port_modules_import_without_jax_or_repro():
                 "repro_torch.optim.adamw", "repro_torch.data",
                 "repro_torch.data.pipeline", "repro_torch.checkpoint.ckpt",
                 "repro_torch.launch.train", "repro_torch.launch.profile_train",
-                "repro_torch.runtime", "repro_torch.runtime.fault"):
+                "repro_torch.launch.lr_probe", "repro_torch.runtime", "repro_torch.runtime.fault"):
         assert mod in out["mods"]
 
 

@@ -22,11 +22,18 @@ import torch
 from repro import configs as jconfigs
 from repro.checkpoint import ckpt as jckpt
 from repro.configs.base import RunConfig as JRunConfig
+from repro.data import DataConfig as JDataConfig
+from repro.data import SyntheticLM as JSyntheticLM
+from repro.launch import train as jtrain
 from repro.models import Model as JModel
 from repro.models import layers as jl
+from repro.optim import AdamW as JAdamW
+from repro.optim import AdamWConfig as JAdamWConfig
+from repro.optim import cosine_schedule as jcosine
 from repro_torch import configs as tconfigs
 from repro_torch.checkpoint import bridge
 from repro_torch.configs.base import RunConfig as TRunConfig
+from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gmm as tgmm
 from repro_torch.kernels import ops, ref
@@ -339,7 +346,6 @@ def _run(tmp_path, name, fail_at_step):
     run = TRunConfig()
     model, opt, _ = _smoke_state(run)
     cfg = model.cfg
-    from repro_torch.data import DataConfig, SyntheticLM
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                   global_batch=2), "cpu")
     seen = []
@@ -366,6 +372,56 @@ def test_run_training_restart_replays_the_same_losses(tmp_path):
     for step, loss in failed_seen:
         np.testing.assert_allclose(loss, want[step], rtol=1e-6)
     assert failed["loss_history"][-1] == plain["loss_history"][-1]
+
+
+# 12 bf16 steps of the two packages from the same weights: the largest
+# relative loss difference read is 4.7e-4 (they round to bf16 at other
+# places), an order below the batch-to-batch spread of the losses (~2.5e-2)
+TRAJ_TOL = 2e-3
+
+
+def test_bf16_steps_at_the_cli_lr_follow_jax_and_lower_the_held_out_loss(
+        tmp_path):
+    """internvl2-2b's smoke model, text only as at full width, takes the 12
+    steps of chip_smoke.py's full-width run with the CLI's AdamW (peak
+    3e-3, warmup 20, decay 0.1) in bf16, the port beside JAX's jitted
+    ``make_train_step``: every step's loss, and the held-out loss
+    (``train.held_out_loss``) before and after, within TRAJ_TOL of JAX's.
+    The last loss is above the first in both (another batch), while the
+    held-out loss falls in both by more than chip_smoke.py's REPLAY_TOL of
+    itself (1e-3): the check that shows learning."""
+    steps, lr, B, S = 12, ttrain.CLI_LR, 4, 32
+    arch = "internvl2-2b"
+    jm, params, tm = _pair(jconfigs.get_smoke(arch),
+                           tconfigs.get_smoke(arch), "bfloat16", tmp_path)
+    jopt = JAdamW(JAdamWConfig(lr=jcosine(lr, warmup=ttrain.CLI_WARMUP,
+                                          total=steps)))
+    jstep = jax.jit(jtrain.make_train_step(
+        jm, jopt, JRunConfig(remat=False, attn_impl="xla")))
+    jdata = JSyntheticLM(JDataConfig(jm.cfg.vocab_size, S, B))
+    jheld = jdata.batch_at(ttrain.HELD_OUT_STEP)
+    jstate = {"params": params, "opt": jopt.init(params)}
+    want = [float(jm.loss(params, jheld)[0])]
+    for step in range(steps):
+        jstate, m = jstep(jstate, jdata.batch_at(step))
+        want.append(float(m["loss"]))
+    want.append(float(jm.loss(jstate["params"], jheld)[0]))
+
+    run = TRunConfig()
+    opt = ttrain.cli_optimizer(steps)
+    data = SyntheticLM(DataConfig(jm.cfg.vocab_size, S, B), "cpu")
+    state = {"params": tm, "opt": opt.init(tm)}
+    step_fn = ttrain.make_train_step(tm, opt, run)
+    got = [ttrain.held_out_loss(tm, data)]
+    for step in range(steps):
+        state, m = step_fn(state, data.batch_at(step))
+        got.append(float(m["loss"]))
+    got.append(ttrain.held_out_loss(tm, data))
+
+    np.testing.assert_allclose(got, want, rtol=TRAJ_TOL)
+    for losses in (got, want):
+        assert losses[steps] > losses[1]
+        assert losses[0] - losses[-1] > 1e-3 * losses[0]
 
 
 @pytest.mark.parametrize("field,value,item", [
