@@ -81,13 +81,19 @@ Phases (each raises on failure):
 
 12. gradients: K1, K2 and K3 through their ``autograd.Function``s on the
    card (forward on the kernel, backward recomputing the plain version),
-   in bf16 and fp32 at two small shapes each and at the shapes phases 14
-   and 15 give K2 and K1, forward and every input gradient against
-   autograd through the plain version on the card, one launch counted per
-   forward;
+   in bf16 and fp32 at two small shapes each and at the shapes phases
+   14-16 give them (K2 mamba2-130m's, K1 internvl2-2b's and
+   olmoe-1b-7b's, K3 olmoe-1b-7b's at capacity 1280), forward and every
+   input gradient against autograd through the plain version on the card,
+   one launch counted per forward;
 13. one step of ``launch.train.make_train_step`` on the deepseek-7b,
    mamba2-130m and olmoe-1b-7b smoke configs in fp32 on the card against
-   CPU copies: loss, every gradient and the parameters after AdamW;
+   CPU copies: loss, every gradient and the parameters after AdamW; then
+   again with int8 moments and fp8 error-feedback gradient compression
+   (``RunConfig.opt_8bit``, ``grad_compression``), where the gradients
+   the optimizer gets, the error accumulator and the moments' int8 codes
+   are compared too (an element whose fp8 or int8 code differs between
+   the two is allowed one code step, and such elements are counted);
 14. train mamba2-130m at full width (bf16, remat, B 8 × S 4096) through
    ``runtime.run_training`` with the CLI's schedule: 30 steps, a
    checkpoint every 10, a failure injected at step 15; K2 forward (twice a
@@ -95,13 +101,22 @@ Phases (each raises on failure):
 15. train internvl2-2b's language model at full width (bf16, remat, text
    only, B 4 × S 2048): 12 steps, a checkpoint every 4, a failure at step
    6, with the CLI's AdamW at peak lr 1e-3; K1 forward twice a layer a
-   step.
-   Each full-width run prints its median step time, tokens/s, MFU, peak
-   memory, launches a step, first and last loss and restarts, and checks
-   one restart, a falling loss, finite losses, that the steps replayed
-   from the checkpoint give the first pass's losses, and that the loss on
-   a held-out batch fell by more than REPLAY_TOL of itself.  The launches
-   of both runs count in the JSON line, beside the serving paths'.
+   step;
+16. train olmoe-1b-7b at full width (bf16, remat, int8 AdamW moments, B 4
+   × S 2048, so K3's capacity is 1280): 40 steps at peak lr 1e-4 after a
+   2-step warm-up, a checkpoint every 20, a failure at step 22; K1 twice
+   and K3 six times a layer a step.  Where the disk holds one of its
+   41.6 GB checkpoints but not two, the one the restart restored is
+   removed before the final save.
+   Each full-width run prints the free disk and host memory against what
+   its checkpoints need (and fails if either is short), its median step
+   time, tokens/s, MFU, peak memory, the seconds of each checkpoint save
+   and restore, launches a step, first and last loss and restarts, and
+   checks one restart, a falling loss (with fp32 moments), finite losses,
+   that the steps replayed from the checkpoint give the first pass's
+   losses, and that the loss on a held-out batch fell by more than
+   REPLAY_TOL of itself.  The launches
+   of the three runs count in the JSON line, beside the serving paths'.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  With no
@@ -135,6 +150,7 @@ from repro_torch.kernels import gmm as gmm_kernel  # noqa: E402
 from repro_torch.kernels import nvcc, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
@@ -1089,18 +1105,28 @@ def phase_moe_layer(run: Served) -> None:
 # training
 # ----------------------------------------------------------------------
 # the kernels' gradients: (kernel, shape) at two small shapes each and at
-# the shapes the full-width training runs give K1 and K2 (phases 14-15),
-# in bf16 and fp32.  K1: (B, S, H, K, hd), causal; K2: (B, L, H, G, P, N,
-# Q); K3: (E, C, d, f), C 72 on the 128 x 256 tiling
+# the shapes the full-width training runs give them (phases 14-16), in
+# bf16 and fp32.  K1: (B, S, H, K, hd), causal; K2: (B, L, H, G, P, N,
+# Q); K3: (E, C, d, f), C 72 on the 128 x 256 tiling, and olmoe-1b-7b's
+# x@w_gate at B 4 x S 2048 (capacity 1280)
 GRAD_SHAPES = [("K1", (2, 128, 4, 2, 64)), ("K1", (1, 200, 4, 4, 128)),
                ("K1", (4, 2048, 16, 8, 128)),
+               ("K1", (4, 2048, 16, 16, 128)),
                ("K2", (2, 64, 8, 1, 16, 16, 8)),
                ("K2", (1, 512, 4, 2, 64, 128, 256)),
                ("K2", (8, 4096, 24, 1, 64, 128, 256)),
-               ("K3", (4, 64, 128, 64)), ("K3", (8, 72, 256, 128))]
+               ("K3", (4, 64, 128, 64)), ("K3", (8, 72, 256, 128)),
+               ("K3", (64, 1280, 2048, 1024))]
 # a small training step on the card against CPU copies: 1e-4 of each
-# tensor's max (fp32 sums in another order)
+# tensor's max (fp32 sums in another order).  With the optimizer extras
+# the quantisers turn last-bit differences into whole codes: an element
+# whose fp8 gradient code differs is allowed one fp8 step, an int8 moment
+# code up to 127 / 8 (its row's scale moves with the absmax element's fp8
+# step), each on at most CODE_SHARE of all elements (the CPU tests' share
+# against JAX, tests/test_torch_train.py EXTRAS_SHARE)
 STEP_TOL = 1e-4
+CODE_SHARE = 1e-2
+EXTRAS = RunConfig(opt_8bit=True, grad_compression=True)
 STEP_SEQ, STEP_BATCH = 32, 2
 # replayed steps against the first pass (bf16, atomics in the embedding's
 # backward): relative.  A run has learned when its held-out loss
@@ -1185,72 +1211,134 @@ class _KeepGrads:
         return self.opt.update(grads, state, params)
 
 
+def beyond_tol(got: torch.Tensor, want: torch.Tensor,
+               step: torch.Tensor) -> tuple[int, bool]:
+    """The elements of ``got`` outside STEP_TOL of ``want`` (scaled as
+    ``worst_scaled``): how many, and whether each is within ``step`` (one
+    code step at that element) of ``want``."""
+    d = (got - want).abs()
+    over = d > STEP_TOL * want.abs().max() + STEP_TOL * want.abs()
+    return int(over.sum()), bool((d[over] <= step[over]).all())
+
+
+def fp8_step(want: torch.Tensor) -> torch.Tensor:
+    """An upper bound on the step between adjacent e4m3 codes at each
+    element of a tensor compressed under its absmax scale: |x|/8 (three
+    mantissa bits) or a subnormal step, 2^-9 of the scale."""
+    scale = want.abs().max() / 448.0
+    return want.abs() / 8 + scale * 2.0 ** -9
+
+
+def code_diffs(got: dict, want: dict) -> tuple[int, float]:
+    """The largest difference between two 8-bit moments' int8 codes, and
+    the share of all their codes that differ."""
+    worst, n, size = 0, 0, 0
+    for k, w in want.items():
+        d = (got[k]["q"].cpu().int() - w["q"].int()).abs()
+        worst = max(worst, int(d.max()))
+        n, size = n + int((d > 0).sum()), size + d.numel()
+    return worst, n / size
+
+
 def phase_small_train() -> None:
     """One train step of each served family's smoke config in fp32, the
-    card against CPU copies.  An AdamW step moves an element by about lr
-    whatever its gradient's size, so where a CPU gradient is within the
-    gradient tolerance of 0 its sign is undetermined: such elements may
-    differ by up to 2 lr, and are counted."""
+    card against CPU copies; then again with the optimizer extras (int8
+    moments, fp8 error-feedback compression).  An AdamW step moves an
+    element by about lr whatever its gradient's size, so where a CPU
+    gradient is within the gradient tolerance of 0 its sign is
+    undetermined: such elements may differ by up to 2 lr, and are
+    counted."""
     bad = []
-    for arch in (SERVE_ARCH, SSM_ARCH, MOE_ARCH):
-        cfg = configs.get_smoke(arch)
-        run = RunConfig()
-        out = {}
-        for dev in ("cuda", "cpu"):
-            model = Model(cfg, run, dtype=torch.float32, device=dev)
-            if dev == "cuda":
-                model.init(torch.Generator(device="cuda").manual_seed(13))
-                weights = {k: v.cpu() for k, v in model.state_dict().items()}
-            else:
-                model.load_state_dict(weights)
-            opt = _KeepGrads(train.cli_optimizer(10))
-            state = {"params": model, "opt": opt.init(model)}
-            batch = SyntheticLM(DataConfig(cfg.vocab_size, STEP_SEQ,
-                                           STEP_BATCH, seed=13),
-                                dev).batch_at(0)
-            zero_counts()
-            state, metrics = train.make_train_step(model, opt, run)(state,
-                                                                    batch)
-            out[dev] = (float(metrics["loss"]), opt.grads,
-                        {k: v.detach().cpu() for k, v in
-                         model.named_parameters()}, counts())
-        loss, grads, params, launches = out["cuda"]
-        want_loss, want_grads, want_params, _ = out["cpu"]
-        lr = train.cli_optimizer(10).cfg.lr(1)
-        g_worst = max(worst_scaled(grads[k], want_grads[k], STEP_TOL)
-                      for k in want_grads)
-        p_worst, loose = 0.0, 0
-        for k, want in want_params.items():
-            d = (params[k] - want).abs()
-            lim = STEP_TOL * want.abs().max() + STEP_TOL * want.abs()
-            g = want_grads[k].abs()
-            zeroish = g <= STEP_TOL * g.max()
-            over = d > lim
-            loose += int((over & zeroish).sum())
-            p_worst = max(p_worst, (d / lim)[~zeroish].max().item()
-                          if (~zeroish).any() else 0.0)
-            if (d[over & zeroish] > 2 * lr * 1.01).any():
-                p_worst = math.inf
-        L = cfg.n_layers
-        want_launches = {"K1": 2 * L if cfg.n_heads else 0,
-                         "K2": 2 * L if cfg.ssm_state else 0,
-                         "K3": 6 * L if cfg.n_experts else 0}
-        ok = (abs(loss - want_loss) <= STEP_TOL * abs(want_loss)
-              and g_worst <= 1.0 and p_worst <= 1.0
-              and launches == want_launches)
-        print(f"train step {cfg.name} fp32 B{STEP_BATCH} S{STEP_SEQ}, card "
-              f"vs CPU: loss {loss:.6f} vs {want_loss:.6f}; worst |d| / "
-              f"(tol max + tol |want|), tol {STEP_TOL:.0e}: gradients "
-              f"{g_worst:.3f}, parameters after AdamW {p_worst:.3f} "
-              f"({loose} elements whose gradient is within tolerance of 0 "
-              f"moved otherwise, by at most 2 lr = {2 * lr:.2e}); launches "
-              f"{launches} (want {want_launches}: remat runs each forward "
-              f"twice) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            bad.append(cfg.name)
+    for run in (RunConfig(), EXTRAS):
+        for arch in (SERVE_ARCH, SSM_ARCH, MOE_ARCH):
+            cfg = configs.get_smoke(arch)
+            if not small_train_step(cfg, run):
+                bad.append(f"{cfg.name} {run}")
     if bad:
         raise AssertionError(f"the train step on the card disagrees with "
                              f"its CPU copy: {bad}")
+
+
+def small_train_step(cfg, run: RunConfig) -> bool:
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = Model(cfg, run, dtype=torch.float32, device=dev)
+        opt = _KeepGrads(train.cli_optimizer(10, state_8bit=run.opt_8bit))
+        state = train.init_train_state(
+            model, opt, run, torch.Generator(device=dev).manual_seed(13))
+        if dev == "cuda":
+            weights = {k: v.cpu() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(weights)
+        batch = SyntheticLM(DataConfig(cfg.vocab_size, STEP_SEQ,
+                                       STEP_BATCH, seed=13),
+                            dev).batch_at(0)
+        zero_counts()
+        state, metrics = train.make_train_step(model, opt, run)(state, batch)
+        out[dev] = (float(metrics["loss"]), opt.grads,
+                    {k: v.detach().cpu() for k, v in
+                     model.named_parameters()}, counts(), state)
+    loss, grads, params, launches, state = out["cuda"]
+    want_loss, want_grads, want_params, _, want_state = out["cpu"]
+    lr = train.cli_optimizer(10).cfg.lr(1)
+    extras = ""
+    if run.grad_compression:
+        # the gradients the optimizer got are decompressed fp8
+        n_over, size, step_ok = {"g": 0, "err": 0}, 0, True
+        for k, want in want_grads.items():
+            for what, got_k, want_k in (
+                    ("g", grads[k], want),
+                    ("err", state["err"][k].cpu(), want_state["err"][k])):
+                n, ok = beyond_tol(got_k, want_k, fp8_step(want))
+                n_over[what], step_ok = n_over[what] + n, step_ok and ok
+            size += want.numel()
+        share = {what: n / size for what, n in n_over.items()}
+        codes = {"m": code_diffs(state["opt"]["m"], want_state["opt"]["m"]),
+                 "v": code_diffs(state["opt"]["v"], want_state["opt"]["v"])}
+        g_worst = (0.0 if step_ok and max(share.values()) <= CODE_SHARE
+                   else math.inf)
+        c_ok = all(w <= 127 // 8 and part <= CODE_SHARE
+                   for w, part in codes.values())
+        extras = (f"; elements outside tolerance (share of all): "
+                  f"gradients {share['g']:.2e}, err {share['err']:.2e} "
+                  f"(each within an fp8 step: {step_ok}); int8 codes "
+                  f"(largest difference, share differing): "
+                  + ", ".join(f"{k} {w}, {part:.2e}"
+                              for k, (w, part) in codes.items()))
+    else:
+        g_worst = max(worst_scaled(grads[k], want_grads[k], STEP_TOL)
+                      for k in want_grads)
+        c_ok = True
+    p_worst, loose = 0.0, 0
+    for k, want in want_params.items():
+        d = (params[k] - want).abs()
+        lim = STEP_TOL * want.abs().max() + STEP_TOL * want.abs()
+        g = want_grads[k].abs()
+        zeroish = g <= STEP_TOL * g.max()
+        over = d > lim
+        loose += int((over & zeroish).sum())
+        p_worst = max(p_worst, (d / lim)[~zeroish].max().item()
+                      if (~zeroish).any() else 0.0)
+        if (d[over & zeroish] > 2 * lr * 1.01).any():
+            p_worst = math.inf
+    L = cfg.n_layers
+    want_launches = {"K1": 2 * L if cfg.n_heads else 0,
+                     "K2": 2 * L if cfg.ssm_state else 0,
+                     "K3": 6 * L if cfg.n_experts else 0}
+    ok = (abs(loss - want_loss) <= STEP_TOL * abs(want_loss)
+          and g_worst <= 1.0 and p_worst <= 1.0 and c_ok
+          and launches == want_launches)
+    what = ("int8 moments, fp8 gradient compression" if run.opt_8bit
+            else "fp32 moments")
+    print(f"train step {cfg.name} fp32 B{STEP_BATCH} S{STEP_SEQ}, {what}, "
+          f"card vs CPU: loss {loss:.6f} vs {want_loss:.6f}; worst |d| / "
+          f"(tol max + tol |want|), tol {STEP_TOL:.0e}: gradients "
+          f"{g_worst:.3f}, parameters after AdamW {p_worst:.3f} "
+          f"({loose} elements whose gradient is within tolerance of 0 "
+          f"moved otherwise, by at most 2 lr = {2 * lr:.2e}){extras}; "
+          f"launches {launches} (want {want_launches}: remat runs each "
+          f"forward twice) {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 class _StepTimes(StepMonitor):
@@ -1265,11 +1353,38 @@ class _StepTimes(StepMonitor):
         return super().record(step, seconds)
 
 
+def host_room(model: Model, run: RunConfig, ckpt_dir: str
+              ) -> tuple[bool, str]:
+    """Free disk under ``ckpt_dir`` and the host's MemAvailable against
+    what the run's checkpoints need: the disk one npz, and two for the
+    writer's order (a new one is written beside the last before that is
+    pruned); the host memory the largest array twice (read in its own
+    dtype, then as fp32).  Raises if there is no room for one checkpoint
+    or for that array; returns whether two fit, and what it read."""
+    n = [p.numel() for p in model.parameters()]
+    rows = sum(p.numel() // p.shape[-1] for p in model.parameters())
+    moments = 2 * (sum(n) + 4 * rows) if run.opt_8bit else 8 * sum(n)
+    size = 4 * sum(n) + moments + (4 * sum(n) if run.grad_compression
+                                   else 0)
+    free = shutil.disk_usage(ckpt_dir).free
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    need_mem = 2 * 4 * max(n)
+    msg = (f"a checkpoint is {size / 1e9:.2f} GB: {free / 1e9:.1f} GB free "
+           f"on disk (two need {2 * size / 1e9:.2f}), host MemAvailable "
+           f"{avail / 1e9:.1f} GB (need {need_mem / 1e9:.2f}: the largest "
+           f"array twice)")
+    if free < size or avail < need_mem:
+        raise RuntimeError(f"not enough room for the checkpoints: {msg}")
+    return free >= 2 * size, msg
+
+
 def phase_train(arch: str) -> dict[str, int]:
     """Full-width training through ``run_training`` with a restart."""
     r = train.FULL_RUNS[arch]
     cfg = configs.get(arch)
-    run = RunConfig()
+    run = r.run_config()
     t0 = time.perf_counter()
     model = Model(cfg, run, dtype=torch.bfloat16, device="cuda")
     opt = r.optimizer()
@@ -1280,13 +1395,22 @@ def phase_train(arch: str) -> dict[str, int]:
     print(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {n_params / 1e6:.3f} M parameters, "
           f"bf16, remat; AdamW peak lr {r.peak_lr}, warmup "
-          f"{train.CLI_WARMUP}, decay {train.CLI_DECAY}; B {r.batch} x S "
+          f"{r.warmup}, decay {train.CLI_DECAY}, "
+          f"{'int8' if run.opt_8bit else 'fp32'} moments; B {r.batch} x S "
           f"{r.seq}, {r.steps} steps, a "
           f"checkpoint every {r.ckpt_every}, failure at step "
-          f"{r.fail_at_step}; built in {time.perf_counter() - t0:.1f} s; "
-          f"{shutil.disk_usage(ckpt_dir).free / 2**30:.1f} GiB free for "
-          f"checkpoints")
+          f"{r.fail_at_step}; built in {time.perf_counter() - t0:.1f} s")
+    two_fit, room = host_room(model, run, ckpt_dir)
+    print(f"train {cfg.name}: {room}" + ("" if two_fit else
+          "; so the checkpoint the restart restored is removed before the "
+          "final save"))
     monitor, losses = _StepTimes(), []
+
+    def on_step(step, metrics):
+        losses.append((step, float(metrics["loss"])))
+        if not two_fit and step == r.steps - 1:
+            for done in ckpt.all_steps(ckpt_dir):
+                shutil.rmtree(Path(ckpt_dir) / f"step_{done:08d}")
     # the initial state as run_training's init_state makes it, for the
     # held-out loss before the run
     model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -1304,7 +1428,7 @@ def phase_train(arch: str) -> dict[str, int]:
             init_state=lambda: train.init_train_state(
                 model, opt, run, torch.Generator(device="cuda").manual_seed(0)),
             batch_at=data.batch_at, monitor=monitor,
-            on_step=lambda step, m: losses.append((step, float(m["loss"]))))
+            on_step=on_step)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
@@ -1320,7 +1444,8 @@ def phase_train(arch: str) -> dict[str, int]:
                                                "train"))
     L = cfg.n_layers
     want = {"K1": 2 * L * steps_run if cfg.n_heads else 0,
-            "K2": 2 * L * steps_run if cfg.ssm_state else 0, "K3": 0}
+            "K2": 2 * L * steps_run if cfg.ssm_state else 0,
+            "K3": 6 * L * steps_run if cfg.n_experts else 0}
     seen, replays = {}, []
     for step, loss in losses:
         if step in seen:
@@ -1334,11 +1459,14 @@ def phase_train(arch: str) -> dict[str, int]:
           f"{1e3 * monitor.times[0][0]:.3f} ms), {tokens / step_s:.1f} "
           f"tokens/s, MFU {flops / step_s / BF16_FLOP_PER_S:.4f} "
           f"(model_flops {flops:.4e} over step time and the dense bf16 peak "
-          f"{BF16_FLOP_PER_S:.3e}), peak memory {peak / 2**30:.3f} GiB; "
-          f"run wall {wall:.1f} s for {steps_run} steps (checkpoints "
-          f"included)")
+          f"{BF16_FLOP_PER_S:.3e}), peak memory {peak / 2**30:.3f} GiB "
+          f"({peak / 1e9:.3f} GB); run wall {wall:.1f} s for {steps_run} "
+          f"steps (checkpoints included: saves "
+          f"{[round(t, 2) for t in summary['save_seconds']]} s, restore "
+          f"{[round(t, 2) for t in summary['restore_seconds']]} s)")
     print(f"train {cfg.name}: launches {launches} over {steps_run} steps "
-          f"(want {want}: 2 x {L} a step, remat); loss {hist[0]:.4f} -> "
+          f"(want {want}: per layer a step 2 K1 or K2 and 6 K3, remat); "
+          f"loss {hist[0]:.4f} -> "
           f"{hist[-1]:.4f}; restarts {summary['restarts']}; replayed steps "
           f"{[s for s, _, _ in replays]}: largest relative loss difference "
           f"{replay_err:.3e} (tol {REPLAY_TOL:.0e})")
@@ -1351,7 +1479,12 @@ def phase_train(arch: str) -> dict[str, int]:
     bad = []
     if summary["restarts"] != 1:
         bad.append("restarts")
-    if not hist[-1] < hist[0]:
+    # with the reference's int8 moments a last-bit difference (the bf16
+    # atomics of the MoE combine) moves whole codes, and two runs of the
+    # same olmoe-1b-7b steps end 11.5212 and 11.5593 on the same last
+    # batch, more than the run learns: there the held-out batch alone
+    # reads learning (PERF.md §6, PR 18)
+    if not run.opt_8bit and not hist[-1] < hist[0]:
         bad.append("loss did not fall")
     if not held_drop > REPLAY_TOL:
         bad.append("held-out loss did not fall")
@@ -1391,6 +1524,7 @@ def main() -> int:
     phase_small_train()
     launches.update(phase_train(SSM_ARCH))
     launches.update(phase_train(TRAIN_ARCH))
+    launches.update(phase_train(MOE_ARCH))
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]

@@ -51,7 +51,7 @@ def from_flat(flat: Mapping[str, np.ndarray], model: nn.Module) -> nn.Module:
         if arr.shape != tuple(p.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"parameter shape {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(arr).to(device=p.device, dtype=p.dtype))
+        p.copy_(torch.from_numpy(arr))     # cast on the host, then copied
     return model
 
 

@@ -10,7 +10,14 @@ key with their names' "." read as "/" (``checkpoint.bridge``), and so do
 the names that key a dict of tensors.  The train state ``{"params":
 model, "opt": {"step", "m", "v"}}`` thus has JAX's key paths
 (``params/segments/0/0/attn/wq``, ``opt/m/embed``, ``opt/step``): a
-train state saved by either package restores into the other.
+train state saved by either package restores into the other; so do its
+8-bit moments (``opt/m/<path>/q`` int8, ``.../s`` fp32) and the error
+accumulator of gradient compression (``err/<path>``).
+
+``save`` copies one array at a time off the device and into the npz, and
+``restore`` reads one at a time: the host holds one array, not the tree
+(an olmoe-1b-7b train state is ~41.5 GB of npz).  ``save_async`` takes
+the whole snapshot first, as it must.
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ import os
 import re
 import shutil
 import threading
-from typing import Any, Optional
+import zipfile
+from typing import Any, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,21 +43,37 @@ def _join(prefix: str, key: str) -> str:
     return f"{prefix}{SEP}{key}" if prefix else key
 
 
-def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+def _leaves(tree: Any, prefix: str = ""
+            ) -> Iterator[tuple[str, torch.Tensor]]:
+    """(key, tensor) for every leaf of ``tree``, in order, uncopied."""
     if isinstance(tree, nn.Module):
-        return {_join(prefix, k): v for k, v in bridge.to_flat(tree).items()}
-    if isinstance(tree, torch.Tensor):
-        return {prefix: bridge.host_copy(tree)}
-    if isinstance(tree, dict):
-        flat = {}
+        for name, p in tree.named_parameters():
+            yield _join(prefix, name), p
+    elif isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
-            flat.update(_flatten(v, _join(prefix, k)))
-        return flat
-    raise TypeError(f"cannot checkpoint {type(tree).__name__} at "
-                    f"{prefix or 'the root'}")
+            yield from _leaves(v, _join(prefix, k))
+    else:
+        raise TypeError(f"cannot checkpoint {type(tree).__name__} at "
+                        f"{prefix or 'the root'}")
 
 
-def _write(directory: str, step: int, flat: dict[str, np.ndarray],
+def _flatten(tree: Any) -> dict[str, np.ndarray]:
+    return {key: bridge.host_copy(t) for key, t in _leaves(tree)}
+
+
+def _savez(path: str, arrays: Iterable[tuple[str, np.ndarray]]) -> None:
+    """``np.savez``'s layout, written one array at a time."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, arr in arrays:
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, arr, allow_pickle=False)
+
+
+def _write(directory: str, step: int,
+           arrays: Iterable[tuple[str, np.ndarray]],
            meta: Optional[dict], keep: int) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
@@ -57,7 +81,7 @@ def _write(directory: str, step: int, flat: dict[str, np.ndarray],
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+    _savez(os.path.join(tmp, "arrays.npz"), arrays)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump({"step": step, **(meta or {})}, f)
     if os.path.exists(final):
@@ -70,7 +94,8 @@ def _write(directory: str, step: int, flat: dict[str, np.ndarray],
 def save(directory: str, step: int, tree: Any,
          meta: Optional[dict] = None, keep: int = 3) -> str:
     """Atomic checkpoint write; prunes to the newest ``keep`` steps."""
-    return _write(directory, step, _flatten(tree), meta, keep)
+    arrays = ((key, bridge.host_copy(t)) for key, t in _leaves(tree))
+    return _write(directory, step, arrays, meta, keep)
 
 
 def save_async(directory: str, step: int, tree: Any,
@@ -80,7 +105,7 @@ def save_async(directory: str, step: int, tree: Any,
     continues while bytes hit disk)."""
     flat = _flatten(tree)           # copied off the device here, in order
     t = threading.Thread(target=_write,
-                         args=(directory, step, flat, meta, keep),
+                         args=(directory, step, flat.items(), meta, keep),
                          daemon=True)
     t.start()
     return t
@@ -109,12 +134,30 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+class _Under(Mapping):
+    """The arrays of an open npz whose keys start with ``lead``, keyed by
+    the rest, each read when it is asked for."""
+
+    def __init__(self, data, lead: str):
+        self.data, self.lead = data, lead
+        self.names = {k[len(lead):] for k in data.files if k.startswith(lead)}
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        if name not in self.names:
+            raise KeyError(name)
+        return self.data[self.lead + name]
+
+    def __iter__(self):
+        return iter(self.names)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+
 @torch.no_grad()
 def _fill(tree: Any, data, prefix: str = "") -> None:
     if isinstance(tree, nn.Module):
-        lead = _join(prefix, "")
-        bridge.from_flat({k[len(lead):]: data[k] for k in data.files
-                          if k.startswith(lead)}, tree)
+        bridge.from_flat(_Under(data, _join(prefix, "")), tree)
     elif isinstance(tree, torch.Tensor):
         if prefix not in data:
             raise KeyError(f"checkpoint missing {prefix}")
@@ -122,8 +165,7 @@ def _fill(tree: Any, data, prefix: str = "") -> None:
         if arr.shape != tuple(tree.shape):
             raise ValueError(f"{prefix}: checkpoint shape {arr.shape} != "
                              f"target {tuple(tree.shape)}")
-        tree.copy_(torch.from_numpy(arr).to(device=tree.device,
-                                            dtype=tree.dtype))
+        tree.copy_(torch.from_numpy(arr))
     else:
         for k, v in tree.items():
             _fill(v, data, _join(prefix, k))

@@ -1,12 +1,15 @@
 """Training step assembly and CLI driver: the port of the JAX package's
 ``repro.launch.train``.
 
-``make_train_step`` wires ``Model.loss`` → gradients → ``AdamW.update``
-into one function on the train state ``{"params": model, "opt": {...}}``;
-with ``RunConfig.microbatches`` k > 1 the batch is split in k and the
-gradients are summed in fp32.  On the card attention runs K1 and Mamba2
-blocks K2 forward, MoE experts K3, each with the recompute backward of
-``kernels.ops``.
+``make_train_step`` wires ``Model.loss`` → gradients → (optional fp8
+error-feedback compression) → ``AdamW.update`` into one function on the
+train state ``{"params": model, "opt": {...}[, "err": {...}]}``; with
+``RunConfig.microbatches`` k > 1 the batch is split in k and the
+gradients are summed in fp32.  ``RunConfig.opt_8bit`` is read where the
+optimizer is made (``AdamWConfig(state_8bit=...)``, as JAX's dry run
+pairs them), ``grad_compression`` here.  On the card attention runs K1
+and Mamba2 blocks K2 forward, MoE experts K3, each with the recompute
+backward of ``kernels.ops``.
 
     python -m repro_torch.launch.train --arch mamba2-130m --steps 200   # card
     python -m repro_torch.launch.train --device cpu --smoke --steps 3
@@ -33,18 +36,21 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeConfig
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.models import Model
-from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule
+from repro_torch.optim import AdamW, AdamWConfig, compression, \
+    cosine_schedule
 
 
 CLI_LR, CLI_WARMUP, CLI_DECAY = 3e-3, 20, 0.1
 
 
-def cli_optimizer(steps: int, peak_lr: float = CLI_LR) -> AdamW:
-    """The CLI's AdamW: a cosine from ``peak_lr`` after ``CLI_WARMUP``
-    steps, weight decay ``CLI_DECAY``."""
+def cli_optimizer(steps: int, peak_lr: float = CLI_LR,
+                  state_8bit: bool = False,
+                  warmup: int = CLI_WARMUP) -> AdamW:
+    """The CLI's AdamW: a cosine from ``peak_lr`` after ``warmup`` steps
+    (the CLI's ``CLI_WARMUP``), weight decay ``CLI_DECAY``."""
     return AdamW(AdamWConfig(
-        lr=cosine_schedule(peak_lr, warmup=CLI_WARMUP, total=steps),
-        weight_decay=CLI_DECAY))
+        lr=cosine_schedule(peak_lr, warmup=warmup, total=steps),
+        weight_decay=CLI_DECAY, state_8bit=state_8bit))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,9 +64,15 @@ class FullRun:
     ckpt_every: int
     fail_at_step: int
     peak_lr: float = CLI_LR
+    opt_8bit: bool = False
+    warmup: int = CLI_WARMUP
+
+    def run_config(self) -> RunConfig:
+        return RunConfig(opt_8bit=self.opt_8bit)
 
     def optimizer(self) -> AdamW:
-        return cli_optimizer(self.steps, self.peak_lr)
+        return cli_optimizer(self.steps, self.peak_lr,
+                             state_8bit=self.opt_8bit, warmup=self.warmup)
 
 
 # mamba2-130m through K2, the CLI's default arch, with the CLI's AdamW;
@@ -68,10 +80,18 @@ class FullRun:
 # training state (bf16 parameters and gradients, fp32 moments: 12 B a
 # parameter) fits one card, at peak lr 1e-3: of 3e-3, 2e-3 and 1e-3 only
 # 1e-3 lowers the held-out loss in 12 steps, in fp32 as in bf16
-# (``lr_probe``, PERF.md §6)
+# (``lr_probe``, PERF.md §6); olmoe-1b-7b through K1 and K3 with int8
+# moments (fp32 ones would make its state ~83 GB), B 4 × S 2048 (K3's
+# capacity 1280), 40 steps at peak lr 1e-4 after a 2-step warm-up: the
+# reference's int8 moments blow up by step 10 at peak 1e-3 or 5e-4
+# (warm-up 20) and at 1e-3 (warm-up 2), while 1e-4 lowers the held-out
+# loss by 4.4-7.1e-3 of itself in 40 steps, where 24 steps gave 0.7-2.8e-3
+# from run to run (``lr_probe``, PERF.md §6)
 FULL_RUNS = {r.arch: r for r in (
     FullRun("mamba2-130m", 8, 4096, 30, 10, 15),
-    FullRun("internvl2-2b", 4, 2048, 12, 4, 6, peak_lr=1e-3))}
+    FullRun("internvl2-2b", 4, 2048, 12, 4, 6, peak_lr=1e-3),
+    FullRun("olmoe-1b-7b", 4, 2048, 40, 20, 22, peak_lr=1e-4,
+            opt_8bit=True, warmup=2))}
 
 
 # a batch of the stream that no run here trains on (runs take steps from
@@ -138,8 +158,17 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig):
 
     def train_step(state: dict, batch: dict):
         grads, metrics = compute_grads(state["params"], batch)
-        new_opt = optimizer.update(grads, state["opt"], state["params"])
-        return {"params": state["params"], "opt": new_opt}, metrics
+
+        new_state = dict(state)
+        if run.grad_compression:
+            g8, scales, new_err = compression.compress_tree(
+                grads, state["err"])
+            del grads
+            grads = compression.decompress_tree(g8, scales)
+            new_state["err"] = new_err
+        new_state["opt"] = optimizer.update(grads, state["opt"],
+                                            state["params"])
+        return new_state, metrics
 
     return train_step
 
@@ -147,13 +176,13 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig):
 def init_train_state(model: Model, optimizer: AdamW, run: RunConfig,
                      generator: torch.Generator) -> dict:
     """Fill ``model`` from ``generator`` and pair it with fresh optimizer
-    state: ``{"params": model, "opt": {"step", "m", "v"}}``."""
-    if run.grad_compression:
-        raise NotImplementedError(
-            "fp8 gradient compression is not ported yet (ROADMAP Queue 1 "
-            "item 4)")
+    state: ``{"params": model, "opt": {"step", "m", "v"}}``, and a zero
+    error accumulator ``"err"`` under ``run.grad_compression``."""
     model.init(generator)
-    return {"params": model, "opt": optimizer.init(model)}
+    state = {"params": model, "opt": optimizer.init(model)}
+    if run.grad_compression:
+        state["err"] = compression.init_error_state(model)
+    return state
 
 
 # ----------------------------------------------------------------------

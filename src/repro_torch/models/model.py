@@ -107,18 +107,18 @@ def _check_supported(cfg: ArchConfig) -> None:
             "MLA and MTP)")
 
 
-# RunConfig fields the port reads; the others name the ROADMAP item
-# (Queue 1) that would implement them
-_READ = ("attn_impl", "ssm_chunk", "remat", "microbatches", "logits_fp32")
-_UNREAD = {"opt_8bit": "item 4, optimizer and compression extras",
-           "grad_compression": "item 4, optimizer and compression extras"}
+# RunConfig fields the port reads (``opt_8bit`` and ``grad_compression``
+# in ``launch.train``); the others wait for multi-GPU sync (ROADMAP Queue
+# 1 item 5)
+_READ = ("attn_impl", "ssm_chunk", "remat", "microbatches", "logits_fp32",
+         "opt_8bit", "grad_compression")
 
 
 def _check_run(run: RunConfig) -> None:
     """Any field the port does not read, set away from its default, raises
     rather than be ignored without a word.  ``sync_mode`` stays
     ``"barrier"``: on one card there is no gradient collective to order."""
-    unread = {f.name: _UNREAD.get(f.name, "item 5, multi-GPU sync")
+    unread = {f.name: "item 5, multi-GPU sync"
               for f in dataclasses.fields(run)
               if f.name not in _READ and getattr(run, f.name) != f.default}
     if unread:

@@ -85,9 +85,12 @@ def run_training(loop: LoopConfig, *,
                  batch_at: Callable,            # (step) -> batch
                  monitor: Optional[StepMonitor] = None,
                  on_step: Optional[Callable] = None) -> dict:
-    """Crash-safe training loop.  Returns a summary dict."""
+    """Crash-safe training loop.  Returns a summary dict; beside JAX's
+    keys it has the seconds each checkpoint write (``save_seconds``; for
+    an async write, the snapshot) and each restore took."""
     restarts = 0
     history: list[float] = []
+    seconds = {"save_seconds": [], "restore_seconds": []}
     injected = {"armed": loop.fail_at_step is not None}
     state = None
 
@@ -98,7 +101,10 @@ def run_training(loop: LoopConfig, *,
         state = init_state()
         start_step = 0
         if last is not None:
+            t0 = time.perf_counter()
             state = ckpt_lib.restore(loop.ckpt_dir, last, state)
+            _block_until_ready(state)
+            seconds["restore_seconds"].append(time.perf_counter() - t0)
             start_step = last + 1
         try:
             pending = None
@@ -118,17 +124,19 @@ def run_training(loop: LoopConfig, *,
                     on_step(step, metrics)
                 if (step + 1) % loop.ckpt_every == 0 \
                         or step == loop.total_steps - 1:
+                    t0 = time.perf_counter()
                     if loop.ckpt_async:
                         pending = ckpt_lib.save_async(
                             loop.ckpt_dir, step, state, keep=loop.keep)
                     else:
                         ckpt_lib.save(loop.ckpt_dir, step, state,
                                       keep=loop.keep)
+                    seconds["save_seconds"].append(time.perf_counter() - t0)
             if pending is not None:
                 pending.join()
             return {"completed": True, "restarts": restarts,
                     "final_step": loop.total_steps - 1,
-                    "loss_history": history}
+                    "loss_history": history, **seconds}
         except SimulatedFailure:
             restarts += 1
             if restarts > loop.max_restarts:

@@ -138,3 +138,100 @@ def test_save_async_writes_the_snapshot(tmp_path):
     ckpt.restore(d, ckpt.latest_step(d), target)
     torch.testing.assert_close(target["params"].weight,
                                torch.full((2, 3), 7.0))
+
+
+# the optimizer extras: int8 moments ({"q", "s"} under each parameter's
+# key path) and the fp8 compression's error accumulator ("err/...")
+EXTRAS = dict(opt_8bit=True, grad_compression=True)
+
+
+@pytest.fixture(scope="module")
+def jax_side_extras():
+    """As ``jax_side``, with both extras: the state after one step holds
+    nonzero int8 codes, their scales and the error accumulator."""
+    jm = JModel(jconfigs.get_smoke(ARCH),
+                JRunConfig(remat=False, attn_impl="xla"), dtype=jnp.float32)
+    jopt = JAdamW(JAdamWConfig(lr=jcosine(1e-2, warmup=2, total=10),
+                               state_8bit=True))
+    run = JRunConfig(remat=False, attn_impl="xla", **EXTRAS)
+    step = jax.jit(jtrain.make_train_step(jm, jopt, run))
+    state = jtrain.init_train_state(jm, jopt, run, jax.random.PRNGKey(0))
+    state, _ = step(state, {"tokens": jnp.asarray(_batch(0))})
+    return jm, jopt, run, state
+
+
+def _port_extras():
+    run = TRunConfig(**EXTRAS)
+    model = TModel(tconfigs.get_smoke(ARCH), run, dtype=torch.float32,
+                   device="cpu")
+    opt = AdamW(AdamWConfig(lr=cosine_schedule(1e-2, warmup=2, total=10),
+                            state_8bit=True))
+    state = ttrain.init_train_state(model, opt, run,
+                                    torch.Generator().manual_seed(1))
+    return state, ttrain.make_train_step(model, opt, run)
+
+
+def _assert_states_equal(port_state, jax_state):
+    """Every array of the two train states, under JAX's key paths, equal
+    in value and dtype: int8 codes stay int8."""
+    got, want = ckpt._flatten(port_state), jckpt._flatten(jax_state)
+    assert got.keys() == want.keys()
+    for key in ("opt/m/segments/0/0/attn/wq/q", "opt/v/embed/s",
+                "err/segments/0/0/attn/wq", "err/embed"):
+        assert key in got
+    assert got["opt/m/embed/q"].dtype == np.int8
+    assert np.abs(got["opt/m/embed/q"]).max() > 0
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+def test_jax_saved_8bit_compressed_state_restores_into_the_port(
+        jax_side_extras, tmp_path):
+    *_, jstate = jax_side_extras
+    path = jckpt.save(str(tmp_path), 1, jstate)
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        assert data["opt/v/embed/q"].dtype == np.int8
+    state, step = _port_extras()
+    ckpt.restore(str(tmp_path), 1, state)
+    assert int(state["opt"]["step"]) == 1
+    _assert_states_equal(state, jstate)
+    state, metrics = step(state, {"tokens": torch.from_numpy(_batch(1))
+                                  .long()})
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_port_saved_8bit_compressed_state_restores_into_jax(
+        jax_side_extras, tmp_path):
+    jm, jopt, run, _ = jax_side_extras
+    state, step = _port_extras()
+    state, _ = step(state, {"tokens": torch.from_numpy(_batch(0)).long()})
+    path = ckpt.save(str(tmp_path), 1, state)
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        assert data["opt/m/embed/q"].dtype == np.int8
+        assert data["err/embed"].dtype == np.float32
+    target = jtrain.init_train_state(jm, jopt, run, jax.random.PRNGKey(5))
+    jstate = jckpt.restore(str(tmp_path), 1, target)
+    _assert_states_equal(state, jstate)
+
+
+def test_save_streams_one_array_at_a_time(tmp_path, monkeypatch):
+    """``save`` copies each array off its tensor only when it writes it
+    (the host holds one array, not the tree): the copies interleave with
+    the writes, and ``np.load`` reads what they wrote."""
+    events = []
+    copy, write = ckpt.bridge.host_copy, np.lib.format.write_array
+    monkeypatch.setattr(ckpt.bridge, "host_copy",
+                        lambda t: events.append("copy") or copy(t))
+    monkeypatch.setattr(np.lib.format, "write_array",
+                        lambda *a, **k: events.append("write")
+                        or write(*a, **k))
+    state = _tiny_state(3)
+    path = ckpt.save(str(tmp_path), 3, state)
+    assert events == ["copy", "write"] * 3
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        assert sorted(data.files) == ["opt/step", "params/bias",
+                                      "params/weight"]
+        np.testing.assert_array_equal(data["params/weight"],
+                                      np.full((2, 3), 3.0, np.float32))
+        assert data["opt/step"].dtype == np.int32

@@ -66,6 +66,7 @@ def _inputs(B, S, H, K, hd, hdv, dtype, device):
     (1, 1024, 16, 16, 192, 128, True, torch.bfloat16),
     (4, 1024, 32, 8, 128, 128, True, torch.bfloat16),
     (4, 2048, 16, 8, 128, 128, True, torch.bfloat16),   # internvl2 training
+    (4, 2048, 16, 16, 128, 128, True, torch.bfloat16),  # olmoe training
 ])
 def test_kernel_matches_plain(cuda, B, S, H, K, hd, hdv, causal, dtype):
     q, k, v = _inputs(B, S, H, K, hd, hdv, dtype, cuda)
@@ -121,9 +122,11 @@ def _grad_inputs(kernel, shape, dtype, device):
 @pytest.mark.parametrize("kernel,shape", [
     ("K1", (2, 128, 4, 2, 64)), ("K1", (1, 200, 4, 4, 128)),
     ("K1", (4, 2048, 16, 8, 128)),              # internvl2-2b training
+    ("K1", (4, 2048, 16, 16, 128)),             # olmoe-1b-7b training
     ("K2", (2, 64, 8, 1, 16, 16, 8)), ("K2", (1, 512, 4, 2, 64, 128, 256)),
     ("K2", (8, 4096, 24, 1, 64, 128, 256)),     # mamba2-130m training
     ("K3", (4, 64, 128, 64)), ("K3", (8, 72, 256, 128)),
+    ("K3", (64, 1280, 2048, 1024)),             # olmoe-1b-7b training
 ])
 def test_kernel_gradients_match_plain(cuda, kernel, shape, dtype):
     """Each kernel through its autograd.Function (forward on the kernel,
@@ -401,6 +404,8 @@ def test_mamba2_ragged_prefill_runs_k2_twice_per_layer(cuda):
     (8, 8, 64, 32, torch.bfloat16),         # olmoe smoke decode: C 8
     (64, 8, 2048, 1024, torch.bfloat16),    # olmoe decode x@w_gate
     (64, 640, 1024, 2048, torch.bfloat16),  # olmoe prefill h@w_out
+    (64, 1280, 2048, 1024, torch.bfloat16),  # olmoe training x@w_gate
+    (64, 1280, 1024, 2048, torch.bfloat16),  # olmoe training h@w_out
     (5, 200, 136, 72, torch.float32),       # ragged C, d and f tiles
     (5, 200, 136, 72, torch.bfloat16),
     # the bf16 tilings' edges: C 16, 24 and 64 (64 x 128 tiles), 72, 136
@@ -480,3 +485,40 @@ def test_olmoe_prefill_runs_k3_three_times_per_moe_layer(cuda):
         assert ops.grouped_matmul.launches == k3 + 3 * cfg.n_layers * 5
         assert ops.flash_attention.launches == k1 + cfg.n_layers
     assert torch.isfinite(logits).all()
+
+
+def test_optimizer_extras_on_the_card_match_cpu(cuda, monkeypatch):
+    """The int8 quantisation of the moments and the fp8 compression of a
+    gradient are elementwise, exactly rounded operations: on the card they
+    give the CPU's codes and scales bit for bit; and one 8-bit AdamW step
+    of a slice-walked stack (``SLICE_NUMEL`` one slice) equals the CPU's to
+    fp32 rounding."""
+    from repro_torch.optim import AdamW, AdamWConfig, adamw, compression
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((4, 96, 256), dtype=np.float32)
+                         * np.exp(rng.standard_normal((4, 96, 1))
+                                  ).astype(np.float32))
+    x[1, 3] = 0.0
+    for got, want in zip(adamw._quant8(x.to(cuda)), adamw._quant8(x)):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    err = torch.from_numpy(1e-3 * rng.standard_normal(x.shape,
+                                                      dtype=np.float32))
+    got = compression.compress_leaf(x.to(cuda, torch.bfloat16),
+                                    err.to(cuda))
+    want = compression.compress_leaf(x.to(torch.bfloat16), err)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=0,
+                                   atol=0)
+
+    monkeypatch.setattr(adamw, "SLICE_NUMEL", 96 * 256)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        mod = torch.nn.Module()
+        mod.w = torch.nn.Parameter(x.to(dev, copy=True))
+        opt = AdamW(AdamWConfig(lr=1e-2, state_8bit=True))
+        state = opt.init(mod)
+        opt.update({"w": (x * 0.1).to(dev)}, state, mod)
+        out.append((mod.w.detach().cpu(), state["m"]["w"]["q"].cpu()))
+    (w, q), (want_w, want_q) = out
+    torch.testing.assert_close(w, want_w, rtol=1e-6, atol=1e-6)
+    assert (q.int() - want_q.int()).abs().max() <= 1

@@ -234,10 +234,11 @@ def test_unported_blocks_name_their_roadmap_item(arch, item):
 ])
 def test_unimplemented_run_options_raise(field, value):
     """The fields the training step reads (``remat``, ``microbatches``,
-    ``logits_fp32``) build; every other one set away from its default
-    raises, naming itself."""
+    ``logits_fp32``, ``opt_8bit``, ``grad_compression``) build; every
+    other one set away from its default raises, naming itself."""
     run = dataclasses.replace(TRunConfig(), **{field: value})
-    if field in ("remat", "microbatches", "logits_fp32"):
+    if field in ("remat", "microbatches", "logits_fp32", "opt_8bit",
+                 "grad_compression"):
         tm = TModel(tconfigs.get_smoke("deepseek-7b"), run, device="cpu")
         assert getattr(tm.run, field) == value
         return
