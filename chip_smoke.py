@@ -13,9 +13,11 @@ Phases (each raises on failure):
    unequal head-dim and fp32 shapes, and at the edges of its tensor-core
    tilings (S one under and over a 64-row tile, hd 8 and 40, hd_v 256, MLA's
    192/128 at S 1024, GQA 4:1 at the serving shape), and at internvl2-2b's
-   training shape (GQA 2:1, S 2048), each with the tiling it ran; and its
-   time beside the plain version, ``F.scaled_dot_product_attention`` (a
-   yardstick only) and its bound;
+   training shape (GQA 2:1, S 2048), deepseek-v3's MLA prefill (B 4, S
+   1024, 128 heads, hd 192 / hd_v 128) and whisper's encoder (B 4, S 1500,
+   20 heads of 64, non-causal), each with the tiling it ran; and its time
+   at the three prefill shapes beside the plain version,
+   ``F.scaled_dot_product_attention`` (a yardstick only) and its bound;
 3. on a small input (the smoke config, fp32), the one-call prefill through
    K1 against token-by-token decode on the plain path;
 4. serve deepseek-7b at full width (bf16, random weights from seed 0):
@@ -54,10 +56,12 @@ Phases (each raises on failure):
 8. K3 (the grouped matmul of the MoE experts, CUDA, wgmma fed by TMA in
    bf16) against its plain PyTorch version on the card at the four
    olmoe-1b-7b serving shapes (prefill and decode, x@w_gate / x@w_in and
-   h@w_out) in bf16, at the prefill and decode shapes in fp32, at the three
-   shapes of tests/test_kernels.py in both types, and at the edges of its
-   two bf16 tilings (C 16, 24, 64, 72, 136, 648; d 136; f 72), each with
-   the tiling it ran; its time at the four serving shapes beside the plain
+   h@w_out) in bf16, at the four deepseek-v3 ones (256 experts, d 7168,
+   expert d_ff 2048; C 160 and 8), at the prefill and decode shapes in
+   fp32, at the three shapes of tests/test_kernels.py in both types, and at
+   the edges of its two bf16 tilings (C 16, 24, 64, 72, 136, 648; d 136;
+   f 72), each with the tiling it ran; its time at the eight serving
+   shapes beside the plain
    version, ``torch.bmm`` (a yardstick only) and its bound, and the host
    time per call of its wrapper, of its C launch function alone and of
    ``torch.bmm`` (where the wrapper's nears the kernel's time, that timing
@@ -87,8 +91,10 @@ Phases (each raises on failure):
    input gradient against autograd through the plain version on the card,
    one launch counted per forward;
 13. one step of ``launch.train.make_train_step`` on the deepseek-7b,
-   mamba2-130m and olmoe-1b-7b smoke configs in fp32 on the card against
-   CPU copies: loss, every gradient and the parameters after AdamW; then
+   mamba2-130m, olmoe-1b-7b, deepseek-v3-671b (MLA, MoE after a dense
+   layer, the MTP loss) and whisper-large-v3 (encoder, cross-attention)
+   smoke configs in fp32 on the card against CPU copies: loss, every
+   gradient and the parameters after AdamW; then
    again with int8 moments and fp8 error-feedback gradient compression
    (``RunConfig.opt_8bit``, ``grad_compression``), where the gradients
    the optimizer gets, the error accumulator and the moments' int8 codes
@@ -99,15 +105,13 @@ Phases (each raises on failure):
    checkpoint every 10, a failure injected at step 15; K2 forward (twice a
    layer a step: remat recomputes it) with the plain recompute backward;
 15. train internvl2-2b's language model at full width (bf16, remat, text
-   only, B 4 × S 2048): 12 steps, a checkpoint every 4, a failure at step
-   6, with the CLI's AdamW at peak lr 1e-3; K1 forward twice a layer a
-   step;
+   only, B 4 × S 2048): 12 steps, a checkpoint every 5 and none after the
+   last step, a failure at step 6, with the CLI's AdamW at peak lr 1e-3;
+   K1 forward twice a layer a step;
 16. train olmoe-1b-7b at full width (bf16, remat, int8 AdamW moments, B 4
    × S 2048, so K3's capacity is 1280): 40 steps at peak lr 1e-4 after a
-   2-step warm-up, a checkpoint every 20, a failure at step 22; K1 twice
-   and K3 six times a layer a step.  Where the disk holds one of its
-   41.6 GB checkpoints but not two, the one the restart restored is
-   removed before the final save.
+   2-step warm-up, one checkpoint (after step 20; none after the last),
+   a failure at step 22; K1 twice and K3 six times a layer a step.
    Each full-width run prints the free disk and host memory against what
    its checkpoints need (and fails if either is short), its median step
    time, tokens/s, MFU, peak memory, the seconds of each checkpoint save
@@ -116,10 +120,32 @@ Phases (each raises on failure):
    that the steps replayed from the checkpoint give the first pass's
    losses, and that the loss on a held-out batch fell by more than
    REPLAY_TOL of itself.  The launches
-   of the three runs count in the JSON line, beside the serving paths'.
+   of the three runs count in the JSON line, beside the serving paths';
+17. the MLA block alone at full width (deepseek-v3-671b, fp32, 0.75 GB):
+   the one-call prefill (naive, through K1) against token-by-token
+   absorbed decode over 4 × 256 tokens, the outputs and the ckv/kr
+   caches within a relative norm of 1e-4;
+18. as phases 3 and 9, on the deepseek-v3 smoke config (MLA; K1 and K3),
+   logits and latent caches;
+19. serve deepseek-v3-671b at full width cut to 2 layers (one dense, one
+   MoE of 256 experts; bf16, random weights from seed 0; 14.63 B
+   parameters with the MTP head, peak memory during init printed): 4
+   requests, prompt 1024, 32 generated tokens; K1 2 and K3 3 launches in
+   the prefill, K3 3 and K1 0 a decode step (absorbed, in the latent
+   space); the drop share; layer 0 (MLA + dense FFN) on the prompts'
+   embeddings against an fp32 copy of the block by phase 4's rule; the
+   kernel path's prefill logits against the plain bf16 path's at every
+   position;
+20. as phase 18, on the whisper smoke config (encoder, cross-attention);
+21. serve whisper-large-v3 whole (32 + 32 layers; bf16): 4 requests of
+   1500 frames, prompt 128, 32 generated tokens; the encoder (K1
+   non-causal, 32 launches) and the decoder prefill (K1, 32) inside TTFT,
+   decode 0 launches, cross-attention recomputing its K/V each step, as
+   JAX does; the prefill logits by phase 4's rule against an fp32 copy.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card's
-``name, power.limit`` and ``{"ok": true, "device": {...}}``.  With no
+The last lines are the script's seconds, a ``{"kernels": [...]}`` JSON
+line, the card's ``name, power.limit`` and ``{"ok": true, "device":
+{...}}``.  With no
 CUDA device, or without the port's package beside it, the script exits
 non-zero and prints no result.
 """
@@ -150,7 +176,6 @@ from repro_torch.kernels import gmm as gmm_kernel  # noqa: E402
 from repro_torch.kernels import nvcc, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
-from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
@@ -177,6 +202,20 @@ SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = (
     serve.SSM_ARCH, serve.SSM_BATCH, serve.SSM_PROMPT, serve.SSM_GEN)
 MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN = (
     serve.MOE_ARCH, serve.MOE_BATCH, serve.MOE_PROMPT, serve.MOE_GEN)
+MLA_ARCH, MLA_BATCH, MLA_PROMPT, MLA_GEN = (
+    serve.MLA_ARCH, serve.MLA_BATCH, serve.MLA_PROMPT, serve.MLA_GEN)
+ENC_ARCH, ENC_BATCH, ENC_PROMPT, ENC_GEN = (
+    serve.ENC_ARCH, serve.ENC_BATCH, serve.ENC_PROMPT, serve.ENC_GEN)
+# deepseek-v3 has no fp32 copy beside its bf16 one (55.8 GB beside 27.9),
+# so its two bf16 prefills (K1 and the plain attention) are held to each
+# other over every position: a relative norm of at most MLA_AGREE, 1.5x
+# phase 4's two-path bound over 30 layers (2 x 1.7e-2 from fp32, PERF.md §6),
+# for the routing near-ties of 4096 tokens over 256 experts; layer 0 is
+# held to an fp32 copy of that block by phase 4's rule
+MLA_AGREE = 5e-2
+# the MLA block alone at full width in fp32: the one-call naive prefill
+# through K1 against token-by-token absorbed decode, relative norm
+MLA_BLOCK_BATCH, MLA_BLOCK_PROMPT, MLA_BLOCK_TOL = 4, 256, 1e-4
 TRAIN_ARCH = "internvl2-2b"         # the GQA training path (SSM: SSM_ARCH)
 # every kernel wrapper; each serving run sets all counts to 0 before it
 # and holds each to what that path must launch
@@ -285,6 +324,13 @@ class Case:
 
 PREFILL = Case("prefill deepseek-7b", SERVE_BATCH, SERVE_PROMPT, 32, 32, 128,
                128, True, torch.bfloat16)
+MLA_PREFILL = Case("prefill deepseek-v3 MLA", MLA_BATCH, MLA_PROMPT, 128, 128,
+                   192, 128, True, torch.bfloat16)
+ENC_ATTN = Case("encoder whisper-large-v3", ENC_BATCH, 1500, 20, 20, 64, 64,
+                False, torch.bfloat16)
+DEC_ATTN = Case("decoder whisper-large-v3", ENC_BATCH, ENC_PROMPT, 20, 20,
+                64, 64, True, torch.bfloat16)
+K1_TIMED = [PREFILL, MLA_PREFILL, ENC_ATTN]
 CASES = [
     PREFILL,
     Case("gqa 2:1, ragged S", 2, 1000, 8, 4, 64, 64, True, torch.bfloat16),
@@ -310,6 +356,13 @@ CASES = [
     # internvl2-2b's training forward (phase 15): GQA 2:1 at S 2048
     Case("train internvl2-2b", 4, 2048, 16, 8, 128, 128, True,
          torch.bfloat16),
+    # the serving shapes of this slice: deepseek-v3's MLA prefill (128
+    # heads, qk 192 / v 128) and whisper's encoder (non-causal over 1500
+    # frames, 20 heads of 64), both timed as the prefill is, and whisper's
+    # decoder prefill (causal over the 128-token prompt)
+    MLA_PREFILL,
+    ENC_ATTN,
+    DEC_ATTN,
     Case("fp32", 2, 300, 4, 2, 128, 128, True, torch.float32),
     Case("fp32 hd 256, non-causal", 1, 130, 2, 1, 256, 256, False,
          torch.float32),
@@ -336,7 +389,17 @@ GMM_PATH = [GMM_PREFILL,
             GmmCase("prefill h@w_out", 64, 640, 1024, 2048, torch.bfloat16),
             GMM_DECODE,
             GmmCase("decode h@w_out", 64, 8, 1024, 2048, torch.bfloat16)]
-GMM_CASES = GMM_PATH + [
+# deepseek-v3-671b serving: 256 experts, d_model 7168, expert d_ff 2048;
+# the prefill's capacity is 160 slots (4 x 1024 tokens: no multiple of the
+# 128-row tile), a decode step's 8; d 7168 is the longest reduction K3 runs
+GMM_MLA_PATH = [
+    GmmCase("v3 prefill x@w_gate, x@w_in", 256, 160, 7168, 2048,
+            torch.bfloat16),
+    GmmCase("v3 prefill h@w_out", 256, 160, 2048, 7168, torch.bfloat16),
+    GmmCase("v3 decode x@w_gate, x@w_in", 256, 8, 7168, 2048,
+            torch.bfloat16),
+    GmmCase("v3 decode h@w_out", 256, 8, 2048, 7168, torch.bfloat16)]
+GMM_CASES = GMM_PATH + GMM_MLA_PATH + [
     dataclasses.replace(GMM_PREFILL, name="prefill, fp32",
                         dtype=torch.float32),
     dataclasses.replace(GMM_DECODE, name="decode, fp32", dtype=torch.float32),
@@ -563,17 +626,25 @@ def phase_k1() -> dict:
                                      f"at {c.name}: {err}")
             errs[c.name] = err
 
-        q, k, v = attention_inputs(PREFILL, gen)
-        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-        plain_ms = time_ms(lambda: plain_attention(q, k, v, True))
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-    bound_ms, bound_by = attention_bound_ms(PREFILL)
-    print(f"K1 at the prefill shape: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
-          f"sdpa (yardstick) {library_ms:.4f} ms ({ms / library_ms:.2f}x); "
-          f"bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{100 * bound_ms / ms:.2f}% of bound")
+        timed = {}
+        for c in K1_TIMED:
+            q, k, v = attention_inputs(c, gen)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            timed[c.name] = (
+                time_ms(lambda: ops.flash_attention(q, k, v,
+                                                    causal=c.causal)),
+                time_ms(lambda: plain_attention(q, k, v, c.causal)),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=c.causal)),
+                *attention_bound_ms(c))
+            ms, plain_ms, library_ms, bound_ms, bound_by = timed[c.name]
+            print(f"K1 at the {c.name} shape (B{c.B} S{c.S} H{c.H} "
+                  f"hd{c.hd}/{c.hdv} causal={c.causal}): {ms:.4f} ms; plain "
+                  f"{plain_ms:.4f} ms; sdpa (yardstick) {library_ms:.4f} ms "
+                  f"({ms / library_ms:.2f}x); bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
+            del q, k, v, qt, kt, vt
+    ms, plain_ms, library_ms, bound_ms, bound_by = timed[PREFILL.name]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:30",
@@ -587,18 +658,31 @@ def phase_small(arch: str) -> None:
     config): the one-call prefill through the kernels against
     token-by-token decode on the plain attention path, over the same cache
     rows.  The smoke configs' capacity factor 16 drops nothing, so an MoE
-    layer routes each token alike both ways."""
+    layer routes each token alike both ways.  MLA blocks (deepseek-v3)
+    prefill on the expanded latents through K1 and decode in the latent
+    space; an encoder (whisper) runs on each side's own path (K1
+    non-causal, then the plain one), its states fed to every step."""
     cfg = configs.get_smoke(arch)
     B, S = 2, 40
-    model, tokens = serve.setup(cfg, B, S, "cuda", dtype=torch.float32,
-                                seed=1)
+    model, requests = serve.setup(cfg, B, S, "cuda", dtype=torch.float32,
+                                  seed=1)
+    tokens = requests["tokens"]
     with torch.inference_mode(), moe.recorded_routes() as seen:
-        one_call, _ = model.decode_step(model.init_cache(B, S), tokens, 0)
+        one_call, cache = model.decode_step(
+            model.init_cache(B, S), tokens, 0,
+            enc_out=serve.encode(model, requests))
         model.run = dataclasses.replace(model.run, attn_impl="plain")
-        cache = model.init_cache(B, S)
-        by_token = torch.cat([model.decode_step(cache, tokens[:, t:t + 1], t)[0]
+        enc_out = serve.encode(model, requests)
+        seq = model.init_cache(B, S)
+        by_token = torch.cat([model.decode_step(seq, tokens[:, t:t + 1], t,
+                                                enc_out=enc_out)[0]
                               for t in range(S)], dim=1)
     err = (one_call - by_token).abs().max().item()
+    # the caches the two ways wrote (k/v, or MLA's ckv/kr latents)
+    cache_err = max((c[name] - seq[si][j][kind][name]).abs().max().item()
+                    for si, seg in enumerate(cache)
+                    for j, block in enumerate(seg)
+                    for kind, c in block.items() for name in c)
     moe_note = ""
     if seen:
         dropped = sum(int(r.dropped) for r in seen)
@@ -609,16 +693,25 @@ def phase_small(arch: str) -> None:
             raise AssertionError(f"{cfg.name} dropped assignments at "
                                  f"capacity factor {cfg.capacity_factor}")
     print(f"small input ({cfg.name}, fp32): one-call prefill through the "
-          f"kernels vs token-by-token plain decode: max|d| {err:.3e} (tol "
-          f"1e-04){moe_note}")
-    if not err <= 1e-4:
-        raise AssertionError(f"one-call prefill and decode disagree: {err}")
+          f"kernels vs token-by-token plain decode: logits max|d| {err:.3e}, "
+          f"caches max|d| {cache_err:.3e} (tol 1e-04){moe_note}")
+    if not (err <= 1e-4 and cache_err <= 1e-4):
+        raise AssertionError(f"one-call prefill and decode disagree: {err}, "
+                             f"caches {cache_err}")
 
 
-def last_prefill_logits(model: Model, prompts) -> torch.Tensor:
+def prefill_logits(model: Model, requests: dict) -> torch.Tensor:
+    """The one-call prefill's logits [B,P,V] for a request batch, the
+    encoder (if any) run on the model's own attention path."""
+    prompts = requests["tokens"]
     cache = model.init_cache(prompts.shape[0], prompts.shape[1])
-    _, logits, _ = serve.prefill(model, cache, prompts)
-    return logits[:, -1].float()
+    _, logits, _ = serve.prefill(model, cache, prompts,
+                                 serve.encode(model, requests))
+    return logits
+
+
+def last_prefill_logits(model: Model, requests: dict) -> torch.Tensor:
+    return prefill_logits(model, requests)[:, -1].float()
 
 
 def fp32_copy(model: Model, run: RunConfig | None = None) -> Model:
@@ -634,47 +727,59 @@ def fp32_copy(model: Model, run: RunConfig | None = None) -> Model:
 @dataclasses.dataclass
 class Served:
     model: Model
-    prompts: torch.Tensor
+    requests: dict                  # {"tokens"} and any "audio_embeds"
     last_logits: torch.Tensor       # kernel path, last prompt position, fp32
     launches: dict[str, int]        # per kernel, prefill and decode
 
+    @property
+    def prompts(self) -> torch.Tensor:
+        return self.requests["tokens"]
 
-def serve_run(arch: str, batch: int, prompt: int, gen: int,
+
+def serve_run(cfg, batch: int, prompt: int, gen: int,
               want: dict[str, tuple[int, int]]) -> Served:
-    """Serve ``arch`` at full width (bf16, random weights from seed 0):
+    """Serve ``cfg`` at full width (bf16, random weights from seed 0):
     ``batch`` prompts of ``prompt`` tokens prefilled in one call, then
-    ``gen - 1`` greedy decode steps.  ``want`` maps a kernel of
-    ``WRAPPERS`` to the launches the prefill and each decode step must
+    ``gen - 1`` greedy decode steps; an encoder-decoder encodes its frames
+    first, inside TTFT and the prefill's launches.  ``want`` maps a kernel
+    of ``WRAPPERS`` to the launches the prefill and each decode step must
     make (every other kernel: none); tokens and logits are checked, the
-    times and peak memory printed."""
-    cfg = configs.get(arch)
-    t0 = time.perf_counter()
-    model, prompts = serve.setup(cfg, batch, prompt, "cuda")
+    times and peak memory (of the init, and of serving) printed."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, requests = serve.setup(cfg, batch, prompt, "cuda")
+    torch.cuda.synchronize()
+    prompts = requests["tokens"]
     n_params = sum(p.numel() for p in model.parameters())
     types = sorted({str(p.dtype)[6:] for p in model.parameters()})
-    print(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e6:.3f} M parameters ({', '.join(types)}), built "
-          f"in {time.perf_counter() - t0:.1f} s")
+    print(f"serve {cfg.name}: {cfg.n_layers} layers"
+          + (f" (+{cfg.encoder_layers} encoder layers)"
+             if cfg.encoder_layers else "")
+          + f", d_model {cfg.d_model}, {n_params / 1e6:.3f} M parameters "
+          f"({', '.join(types)}, {model_bytes(model) / 1e9:.3f} GB), built "
+          f"in {time.perf_counter() - t0:.1f} s, peak memory during init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     n_dec = gen - 1
     with torch.inference_mode():
         # warm-up request (cuBLAS handles, allocator), not counted
-        serve.generate(model, prompts[:, :64], 2)
+        serve.generate(model, dict(requests, tokens=prompts[:, :64]), 2)
         cache = model.init_cache(batch, prompt + gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
         zero_counts()
         t0 = time.perf_counter()
-        tok, logits, cache = serve.prefill(model, cache, prompts)
+        enc_out = serve.encode(model, requests)
+        tok, logits, cache = serve.prefill(model, cache, prompts, enc_out)
         torch.cuda.synchronize()
         ttft = time.perf_counter() - t0
         prefill_launches = counts()
 
         zero_counts()
         t0 = time.perf_counter()
-        rest, cache = serve.decode(model, cache, tok, prompt, n_dec)
+        rest, cache = serve.decode(model, cache, tok, prompt, n_dec, enc_out)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         decode_launches = counts()
@@ -682,13 +787,13 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
 
         tokens = torch.cat([tok, rest], dim=1)
         last_logits, _ = model.decode_step(cache, rest[:, -1:],
-                                           prompt + gen - 1)
+                                           prompt + gen - 1, enc_out=enc_out)
         # the same prefill again, on the cache left (attention rewrites
         # rows 0..prompt, an SSM block starts from the state left, at the
         # same cost): printed beside TTFT, which is the first full-size one
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve.prefill(model, cache, prompts)
+        serve.prefill(model, cache, prompts, serve.encode(model, requests))
         torch.cuda.synchronize()
         second_prefill = time.perf_counter() - t0
     bad = []
@@ -710,28 +815,45 @@ def serve_run(arch: str, batch: int, prompt: int, gen: int,
         raise AssertionError("non-finite logits")
     print("logits finite: prefill [B,P,V] and the last decode step")
 
-    print(f"serve {cfg.name}: TTFT {1e3 * ttft:.2f} ms (prefill {batch}x"
-          f"{prompt}), decode {1e3 * decode_s / n_dec:.3f} ms/token step, "
+    print(f"serve {cfg.name}: TTFT {1e3 * ttft:.2f} ms ("
+          + ("encode and " if enc_out is not None else "")
+          + f"prefill {batch}x{prompt}), decode "
+          f"{1e3 * decode_s / n_dec:.3f} ms/token step, "
           f"decode {batch * n_dec / decode_s:.1f} tokens/s, end to end "
           f"{batch * gen / (ttft + decode_s):.1f} generated tokens/s, peak "
           f"memory {peak / 2**30:.3f} GiB")
     print(f"serve {cfg.name}: a second prefill of the same prompts "
           f"{1e3 * second_prefill:.2f} ms (TTFT above: the first)")
     print("sample:", tokens[0, :16].tolist())
-    return Served(model, prompts, logits[:, -1].float(),
+    return Served(model, requests, logits[:, -1].float(),
                   {name: prefill_launches[name] + decode_launches[name]
                    for name in WRAPPERS})
 
 
+def model_bytes(model: Model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
 def phase_serve() -> dict:
-    run = serve_run(SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN,
-                    {"K1": (configs.get(SERVE_ARCH).n_layers, 0)})
+    run = serve_run(configs.get(SERVE_ARCH), SERVE_BATCH, SERVE_PROMPT,
+                    SERVE_GEN, {"K1": (configs.get(SERVE_ARCH).n_layers, 0)})
+    judge_prefill(run)
+    return run.launches
+
+
+def judge_prefill(run: Served) -> None:
+    """Phase 4's rule on the last-position prefill logits: the kernel path
+    no farther from an fp32 model on the same weights (plain attention)
+    than the plain bf16 path (x KERNEL_VS_PLAIN_ERR), and the two bf16
+    paths within AGREE_VS_PLAIN_ERR x the plain path's error of each
+    other."""
     model, kern_last = run.model, run.last_logits
     with torch.inference_mode():
         model.run = dataclasses.replace(model.run, attn_impl="plain")
-        plain_last = last_prefill_logits(model, run.prompts)
+        plain_last = last_prefill_logits(model, run.requests)
         ref_last = last_prefill_logits(
-            fp32_copy(model, RunConfig(attn_impl="plain")), run.prompts)
+            fp32_copy(model, RunConfig(attn_impl="plain")), run.requests)
+        model.run = dataclasses.replace(model.run, attn_impl="kernel")
 
     rel_k, rel_p, rel_kp = (rel_err(kern_last, ref_last),
                             rel_err(plain_last, ref_last),
@@ -749,7 +871,6 @@ def phase_serve() -> dict:
             "the kernel path's prefill logits are less accurate than the "
             "plain bf16 path's, or disagree with them by more than twice the "
             "plain path's own bf16 error")
-    return run.launches
 
 
 def phase_k2() -> dict:
@@ -844,7 +965,8 @@ def phase_duality(S: int) -> None:
     B = DUALITY_BATCH
     want_launches = cfg.n_layers * ((S >= cfg.ssm_chunk)
                                     + (S % cfg.ssm_chunk > 0))
-    model, tokens = serve.setup(cfg, B, S, "cuda", seed=1)
+    model, requests = serve.setup(cfg, B, S, "cuda", seed=1)
+    tokens = requests["tokens"]
     bad = []
 
     def both_ways(m: Model):
@@ -900,10 +1022,10 @@ def phase_duality(S: int) -> None:
 
 
 def phase_serve_ssm() -> dict:
-    run = serve_run(SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN,
+    run = serve_run(configs.get(SSM_ARCH), SSM_BATCH, SSM_PROMPT, SSM_GEN,
                     {"K2": (configs.get(SSM_ARCH).n_layers, 0)})
     with torch.inference_mode():
-        ref_last = last_prefill_logits(fp32_copy(run.model), run.prompts)
+        ref_last = last_prefill_logits(fp32_copy(run.model), run.requests)
     bf16_last = run.last_logits
     agree = (bf16_last.argmax(-1) == ref_last.argmax(-1)).float().mean()
     print(f"prefill last-position logits (max|logit| "
@@ -952,7 +1074,7 @@ def phase_k3() -> dict:
             del x, w, got, want
 
         timed = {}
-        for c in GMM_PATH:
+        for c in GMM_PATH + GMM_MLA_PATH:
             x, w = inputs(c)
             timed[c.name] = (
                 time_ms(lambda: ops.grouped_matmul(x, w)),
@@ -973,7 +1095,7 @@ def phase_k3() -> dict:
         # output: what the wrapper's checks and allocation leave)
         lib = gmm_kernel._library()
         stream = torch.cuda.current_stream().cuda_stream
-        for c in GMM_PATH:
+        for c in GMM_PATH + GMM_MLA_PATH:
             x, w = inputs(c)
             out = torch.empty((c.E, c.C, c.f), dtype=c.dtype, device="cuda")
             args = (x.data_ptr(), w.data_ptr(), out.data_ptr(),
@@ -998,15 +1120,21 @@ def phase_k3() -> dict:
 def phase_serve_moe() -> tuple[dict, Served]:
     cfg = configs.get(MOE_ARCH)
     L = cfg.n_layers
-    run = serve_run(MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN,
+    run = serve_run(cfg, MOE_BATCH, MOE_PROMPT, MOE_GEN,
                     {"K1": (L, 0), "K3": (3 * L, 3 * L)})
-    # the same prefill once more, its routings recorded (not timed)
-    model, prompts = run.model, run.prompts
+    print_drops(run, L)
+    return run.launches, run
+
+
+def print_drops(run: Served, n_moe: int) -> None:
+    """The same prefill once more, its routings recorded (not timed): the
+    share of assignments that found their expert full, per MoE layer."""
+    model, prompts, cfg = run.model, run.prompts, run.model.cfg
+    B, P = prompts.shape
     with torch.inference_mode(), moe.recorded_routes() as seen:
-        serve.prefill(model, model.init_cache(MOE_BATCH, MOE_PROMPT),
-                      prompts)
+        serve.prefill(model, model.init_cache(B, P), prompts)
         drops = [int(r.dropped) for r in seen]
-    T = MOE_BATCH * MOE_PROMPT
+    T = B * P
     slots = T * cfg.n_experts_per_tok
     C = moe._capacity(T, cfg)
     print(f"serve {cfg.name}: capacity {C} slots per expert (factor "
@@ -1014,10 +1142,9 @@ def phase_serve_moe() -> tuple[dict, Served]:
           f"share of the {slots} prefill assignments dropped per layer: "
           f"{[round(n / slots, 4) for n in drops]}; all layers "
           f"{sum(drops) / (slots * len(drops)):.4f}")
-    if len(drops) != L:
+    if len(drops) != n_moe:
         raise AssertionError(f"{len(drops)} MoE routings in the prefill, "
-                             f"want {L}")
-    return run.launches, run
+                             f"want {n_moe}")
 
 
 def routing_agreement(r: moe.Routing, want: moe.Routing) -> tuple:
@@ -1099,6 +1226,132 @@ def phase_moe_layer(run: Served) -> None:
     if bad:
         raise AssertionError(f"the MoE layer on the card disagrees with its "
                              f"plain route: {bad}")
+
+
+# ----------------------------------------------------------------------
+# deepseek-v3 (MLA, MTP) and whisper (encoder, cross-attention)
+# ----------------------------------------------------------------------
+def phase_mla_block() -> None:
+    """The MLA block alone at full width (deepseek-v3-671b: 128 heads,
+    q_lora 1536, kv_lora 512 + rope 64; 0.75 GB in fp32 on the card): the
+    one-call prefill (the naive path over the cached latents through K1,
+    fp32 on the CUDA cores) against token-by-token decode over the same
+    tokens (absorbed, in the latent space, after a first one-row call):
+    the outputs and the final ckv/kr caches, relative norm within
+    MLA_BLOCK_TOL.  No fp32 copy of the model is needed."""
+    cfg = configs.get(MLA_ARCH)
+    B, S = MLA_BLOCK_BATCH, MLA_BLOCK_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    p = attn.mla_init(gen, cfg, dtype=torch.float32, device="cuda")
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    kw = dict(dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        zero_counts()
+        t0 = time.perf_counter()
+        got, one = attn.mla_apply(p, x, cfg,
+                                  cache=attn.mla_cache_init(cfg, B, S, **kw),
+                                  cache_index=0, impl="kernel")
+        torch.cuda.synchronize()
+        one_s, launches = time.perf_counter() - t0, counts()["K1"]
+        seq = attn.mla_cache_init(cfg, B, S, **kw)
+        t0 = time.perf_counter()
+        want = torch.cat([attn.mla_apply(p, x[:, t:t + 1], cfg, cache=seq,
+                                         cache_index=t, impl="kernel")[0]
+                          for t in range(S)], dim=1)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    errs = {"out": rel_err(got, want), "ckv": rel_err(one["ckv"], seq["ckv"]),
+            "kr": rel_err(one["kr"], seq["kr"])}
+    n = sum(v.numel() for v in p.values())
+    print(f"MLA block {cfg.name} fp32 ({n / 1e6:.3f} M parameters) B{B} "
+          f"S{S}: one-call naive prefill through K1 ({launches} launch, "
+          f"{1e3 * one_s:.3f} ms) vs token-by-token absorbed decode "
+          f"({1e3 * seq_s / S:.3f} ms a step): relative norm "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {MLA_BLOCK_TOL:.0e})")
+    if launches != 1 or not max(errs.values()) <= MLA_BLOCK_TOL:
+        raise AssertionError(f"MLA's naive prefill and absorbed decode "
+                             f"disagree: {errs}, launches {launches}")
+
+
+def judge_block0(run: Served) -> None:
+    """Layer 0 of a served model (MLA and the dense FFN for deepseek-v3) on
+    the prompts' embeddings, by phase 4's rule: the kernel path's output
+    no farther from an fp32 copy of the block than the plain bf16 path's
+    (x KERNEL_VS_PLAIN_ERR), and the two bf16 paths within
+    AGREE_VS_PLAIN_ERR x the plain path's error of each other."""
+    model = run.model
+    spec = model.segments_spec[0].pattern[0]
+    bp = model.segments[0][0].at(0)
+    bp32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+                else v.float()) for k, v in bp.items()}
+    pos = torch.arange(run.prompts.shape[1], device="cuda")
+    outs = {}
+    with torch.inference_mode():
+        x = model.embed[run.prompts].to(model.dtype)
+        for impl, params, xs in (("kernel", bp, x), ("plain", bp, x),
+                                 ("fp32", bp32, x.float())):
+            model.run = dataclasses.replace(
+                model.run, attn_impl="kernel" if impl == "kernel"
+                else "plain")
+            outs[impl] = model._apply_block(params, spec, xs,
+                                            positions=pos)[0].float()
+        model.run = dataclasses.replace(model.run, attn_impl="kernel")
+    rel_k, rel_p, rel_kp = (rel_err(outs["kernel"], outs["fp32"]),
+                            rel_err(outs["plain"], outs["fp32"]),
+                            rel_err(outs["kernel"], outs["plain"]))
+    print(f"{model.cfg.name} layer 0 ({spec.ffn} FFN) on the prompts' "
+          f"embeddings, relative error to an fp32 copy of the block: kernel "
+          f"path {rel_k:.4e}, plain path {rel_p:.4e}; kernel vs plain "
+          f"{rel_kp:.4e}")
+    if not (rel_k <= KERNEL_VS_PLAIN_ERR * rel_p
+            and rel_kp <= AGREE_VS_PLAIN_ERR * rel_p):
+        raise AssertionError(f"{model.cfg.name} layer 0: the kernel path is "
+                             f"less accurate than the plain bf16 path")
+
+
+def phase_serve_mla() -> dict:
+    """Serve deepseek-v3-671b at full width cut to MLA_LAYERS layers: K1
+    once a layer in the prefill, K3 three times for the MoE layer in the
+    prefill and in every decode step; the drop share; layer 0 by phase
+    4's rule; the two bf16 prefills (K1, plain attention) at every
+    position within MLA_AGREE of each other."""
+    cfg = serve.full_config(MLA_ARCH)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    run = serve_run(cfg, MLA_BATCH, MLA_PROMPT, MLA_GEN,
+                    {"K1": (cfg.n_layers, 0), "K3": (3 * n_moe, 3 * n_moe)})
+    print_drops(run, n_moe)
+    judge_block0(run)
+    model = run.model
+    with torch.inference_mode():
+        kern = prefill_logits(model, run.requests).float()
+        model.run = dataclasses.replace(model.run, attn_impl="plain")
+        plain = prefill_logits(model, run.requests).float()
+        model.run = dataclasses.replace(model.run, attn_impl="kernel")
+        rel = rel_err(kern, plain)
+        agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        last = rel_err(kern[:, -1], plain[:, -1])
+    print(f"serve {cfg.name}: prefill logits at every position (max|logit| "
+          f"{plain.abs().max().item():.4e}), kernel path vs plain bf16 "
+          f"path: relative norm {rel:.4e} (limit {MLA_AGREE:.0e}), at the "
+          f"last position {last:.4e}, argmax agreement {agree:.4f}")
+    if not rel <= MLA_AGREE:
+        raise AssertionError(f"{cfg.name}: the kernel path's prefill logits "
+                             f"disagree with the plain path's: {rel}")
+    return run.launches
+
+
+def phase_serve_whisper() -> dict:
+    """Serve whisper-large-v3 whole: the encoder once a request batch (K1
+    non-causal, once a layer) and the decoder prefill (K1 causal, once a
+    layer) inside TTFT, decode on the plain path with cross-attention to
+    the encoder's states; the last-position prefill logits by phase 4's
+    rule against an fp32 copy (6.4 GB)."""
+    cfg = configs.get(ENC_ARCH)
+    run = serve_run(cfg, ENC_BATCH, ENC_PROMPT, ENC_GEN,
+                    {"K1": (cfg.encoder_layers + cfg.n_layers, 0)})
+    judge_prefill(run)
+    return run.launches
 
 
 # ----------------------------------------------------------------------
@@ -1250,7 +1503,7 @@ def phase_small_train() -> None:
     counted."""
     bad = []
     for run in (RunConfig(), EXTRAS):
-        for arch in (SERVE_ARCH, SSM_ARCH, MOE_ARCH):
+        for arch in (SERVE_ARCH, SSM_ARCH, MOE_ARCH, MLA_ARCH, ENC_ARCH):
             cfg = configs.get_smoke(arch)
             if not small_train_step(cfg, run):
                 bad.append(f"{cfg.name} {run}")
@@ -1273,6 +1526,10 @@ def small_train_step(cfg, run: RunConfig) -> bool:
         batch = SyntheticLM(DataConfig(cfg.vocab_size, STEP_SEQ,
                                        STEP_BATCH, seed=13),
                             dev).batch_at(0)
+        if cfg.encoder_layers:
+            batch["audio_embeds"] = torch.randn(
+                (STEP_BATCH, cfg.max_source_positions, cfg.d_model),
+                generator=torch.Generator().manual_seed(13)).to(dev)
         zero_counts()
         state, metrics = train.make_train_step(model, opt, run)(state, batch)
         out[dev] = (float(metrics["loss"]), opt.grads,
@@ -1322,9 +1579,13 @@ def small_train_step(cfg, run: RunConfig) -> bool:
         if (d[over & zeroish] > 2 * lr * 1.01).any():
             p_worst = math.inf
     L = cfg.n_layers
-    want_launches = {"K1": 2 * L if cfg.n_heads else 0,
+    # remat runs each stacked block's forward twice (the encoder's too);
+    # the MTP block, outside the stack, once
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
+    want_launches = {"K1": (2 * (L + cfg.encoder_layers) + cfg.mtp
+                            if cfg.n_heads else 0),
                      "K2": 2 * L if cfg.ssm_state else 0,
-                     "K3": 6 * L if cfg.n_experts else 0}
+                     "K3": 6 * n_moe}
     ok = (abs(loss - want_loss) <= STEP_TOL * abs(want_loss)
           and g_worst <= 1.0 and p_worst <= 1.0 and c_ok
           and launches == want_launches)
@@ -1353,14 +1614,14 @@ class _StepTimes(StepMonitor):
         return super().record(step, seconds)
 
 
-def host_room(model: Model, run: RunConfig, ckpt_dir: str
-              ) -> tuple[bool, str]:
+def host_room(model: Model, run: RunConfig, ckpt_dir: str,
+              copies: int) -> str:
     """Free disk under ``ckpt_dir`` and the host's MemAvailable against
-    what the run's checkpoints need: the disk one npz, and two for the
-    writer's order (a new one is written beside the last before that is
-    pruned); the host memory the largest array twice (read in its own
-    dtype, then as fp32).  Raises if there is no room for one checkpoint
-    or for that array; returns whether two fit, and what it read."""
+    what the run's checkpoints need: the disk ``copies`` npz files (two
+    where a run saves more than once: a new one is written beside the last
+    before that is pruned); the host memory the largest array twice (read
+    in its own dtype, then as fp32).  Raises if there is no room for them
+    or for that array; returns what it read."""
     n = [p.numel() for p in model.parameters()]
     rows = sum(p.numel() // p.shape[-1] for p in model.parameters())
     moments = 2 * (sum(n) + 4 * rows) if run.opt_8bit else 8 * sum(n)
@@ -1372,12 +1633,12 @@ def host_room(model: Model, run: RunConfig, ckpt_dir: str
                      if line.startswith("MemAvailable:"))
     need_mem = 2 * 4 * max(n)
     msg = (f"a checkpoint is {size / 1e9:.2f} GB: {free / 1e9:.1f} GB free "
-           f"on disk (two need {2 * size / 1e9:.2f}), host MemAvailable "
-           f"{avail / 1e9:.1f} GB (need {need_mem / 1e9:.2f}: the largest "
-           f"array twice)")
-    if free < size or avail < need_mem:
+           f"on disk (need {copies} of them, {copies * size / 1e9:.2f}), "
+           f"host MemAvailable {avail / 1e9:.1f} GB (need "
+           f"{need_mem / 1e9:.2f}: the largest array twice)")
+    if free < copies * size or avail < need_mem:
         raise RuntimeError(f"not enough room for the checkpoints: {msg}")
-    return free >= 2 * size, msg
+    return msg
 
 
 def phase_train(arch: str) -> dict[str, int]:
@@ -1398,19 +1659,16 @@ def phase_train(arch: str) -> dict[str, int]:
           f"{r.warmup}, decay {train.CLI_DECAY}, "
           f"{'int8' if run.opt_8bit else 'fp32'} moments; B {r.batch} x S "
           f"{r.seq}, {r.steps} steps, a "
-          f"checkpoint every {r.ckpt_every}, failure at step "
-          f"{r.fail_at_step}; built in {time.perf_counter() - t0:.1f} s")
-    two_fit, room = host_room(model, run, ckpt_dir)
-    print(f"train {cfg.name}: {room}" + ("" if two_fit else
-          "; so the checkpoint the restart restored is removed before the "
-          "final save"))
+          f"checkpoint every {r.ckpt_every} (none after the last step), "
+          f"failure at step {r.fail_at_step}; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    saves = r.steps // r.ckpt_every
+    print(f"train {cfg.name}: {saves} checkpoint saves; "
+          f"{host_room(model, run, ckpt_dir, min(saves, 2))}")
     monitor, losses = _StepTimes(), []
 
     def on_step(step, metrics):
         losses.append((step, float(metrics["loss"])))
-        if not two_fit and step == r.steps - 1:
-            for done in ckpt.all_steps(ckpt_dir):
-                shutil.rmtree(Path(ckpt_dir) / f"step_{done:08d}")
     # the initial state as run_training's init_state makes it, for the
     # held-out loss before the run
     model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -1423,7 +1681,7 @@ def phase_train(arch: str) -> dict[str, int]:
         summary = run_training(
             LoopConfig(total_steps=r.steps, ckpt_dir=ckpt_dir,
                        ckpt_every=r.ckpt_every, keep=1,
-                       fail_at_step=r.fail_at_step),
+                       fail_at_step=r.fail_at_step, ckpt_final=False),
             train_step=step_fn,
             init_state=lambda: train.init_train_state(
                 model, opt, run, torch.Generator(device="cuda").manual_seed(0)),
@@ -1505,6 +1763,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = phase_box()
     k1 = phase_k1()
     phase_small(SERVE_ARCH)
@@ -1525,12 +1784,20 @@ def main() -> int:
     launches.update(phase_train(SSM_ARCH))
     launches.update(phase_train(TRAIN_ARCH))
     launches.update(phase_train(MOE_ARCH))
+    phase_mla_block()
+    phase_small(MLA_ARCH)
+    launches.update(phase_serve_mla())
+    torch.cuda.empty_cache()
+    phase_small(ENC_ARCH)
+    launches.update(phase_serve_whisper())
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in order}
                                   for kern in kernels.values()]}))
     print(card)

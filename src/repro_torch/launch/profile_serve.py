@@ -2,11 +2,16 @@
 one prefill and a few decode steps of a run chip_smoke.py drives
 (``serve.FULL_*``: deepseek-7b, 4 prompts of 1024; ``serve.SSM_*``:
 mamba2-130m, 8 prompts of 4096; ``serve.MOE_*``: olmoe-1b-7b, 4 prompts of
-1024; bf16, random weights from seed 0).
+1024; ``serve.MLA_*``: deepseek-v3-671b cut to 2 layers, 4 prompts of
+1024; ``serve.ENC_*``: whisper-large-v3, 4 requests of 1500 frames and
+prompts of 128, the encoder run once before the phases; bf16, random
+weights from seed 0).
 
     python -m repro_torch.launch.profile_serve                      # deepseek-7b
     python -m repro_torch.launch.profile_serve --arch mamba2-130m
     python -m repro_torch.launch.profile_serve --arch olmoe-1b-7b
+    python -m repro_torch.launch.profile_serve --arch deepseek-v3-671b
+    python -m repro_torch.launch.profile_serve --arch whisper-large-v3
 
 Each phase runs on the same cache, first without the profiler, for its
 wall time (the least of ``WALL_RUNS`` runs), and later under it, for the
@@ -32,7 +37,6 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch import configs
 from repro_torch.launch import serve
 
 DECODE_STEPS = 8
@@ -40,7 +44,9 @@ WALL_RUNS = 3
 ROWS = 16           # operators listed per phase
 RUNS = {serve.FULL_ARCH: (serve.FULL_BATCH, serve.FULL_PROMPT),
         serve.SSM_ARCH: (serve.SSM_BATCH, serve.SSM_PROMPT),
-        serve.MOE_ARCH: (serve.MOE_BATCH, serve.MOE_PROMPT)}
+        serve.MOE_ARCH: (serve.MOE_BATCH, serve.MOE_PROMPT),
+        serve.MLA_ARCH: (serve.MLA_BATCH, serve.MLA_PROMPT),
+        serve.ENC_ARCH: (serve.ENC_BATCH, serve.ENC_PROMPT)}
 
 
 def _device_us(prof) -> float:
@@ -70,18 +76,21 @@ def main(argv: Optional[list[str]] = None) -> None:
         raise RuntimeError("profile_serve measures the card's device time; "
                            "no CUDA device is available")
     B, P = RUNS[arch]
-    model, prompts = serve.setup(configs.get(arch), B, P, "cuda")
+    model, requests = serve.setup(serve.full_config(arch), B, P, "cuda")
+    prompts = requests["tokens"]
     # each prefill below runs on the cache the last one left: attention
     # rewrites rows 0..P, an SSM block starts from the state left there,
     # at the same cost
     with torch.inference_mode():
-        serve.generate(model, prompts[:, :64], 2)            # warm-up
+        serve.generate(model, dict(requests, tokens=prompts[:, :64]),
+                       2)                                    # warm-up
+        enc_out = serve.encode(model, requests)
         cache = model.init_cache(B, P + DECODE_STEPS + 1)
         if args.first:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 prof_wall = _timed(lambda: serve.prefill(model, cache,
-                                                         prompts))
+                                                         prompts, enc_out))
             print(f"[first prefill] wall {1e3 * prof_wall:.3f} ms under the "
                   f"profiler, device kernels "
                   f"{_device_us(prof) / 1e3:.3f} ms")
@@ -89,12 +98,16 @@ def main(argv: Optional[list[str]] = None) -> None:
                 sort_by="self_cpu_time_total", row_limit=ROWS,
                 max_name_column_width=60))
             return
-        tok = serve.prefill(model, cache, prompts)[0]
+        tok = serve.prefill(model, cache, prompts, enc_out)[0]
         phases = {
-            "prefill": lambda: serve.prefill(model, cache, prompts),
+            "prefill": lambda: serve.prefill(model, cache, prompts, enc_out),
             f"decode x{DECODE_STEPS}":
-                lambda: serve.decode(model, cache, tok, P, DECODE_STEPS),
+                lambda: serve.decode(model, cache, tok, P, DECODE_STEPS,
+                                     enc_out),
         }
+        if enc_out is not None:
+            phases = {"encode": lambda: serve.encode(model, requests),
+                      **phases}
         # every unprofiled run comes before the first profiled one, so that
         # no wall time is taken after the profiler has been started
         walls = {name: min(_timed(fn) for _ in range(WALL_RUNS))

@@ -86,11 +86,15 @@ class FullRun:
 # reference's int8 moments blow up by step 10 at peak 1e-3 or 5e-4
 # (warm-up 20) and at 1e-3 (warm-up 2), while 1e-4 lowers the held-out
 # loss by 4.4-7.1e-3 of itself in 40 steps, where 24 steps gave 0.7-2.8e-3
-# from run to run (``lr_probe``, PERF.md §6)
+# from run to run (``lr_probe``, PERF.md §6).  A run saves every
+# ``ckpt_every`` steps and not after its last step (``chip_smoke.py`` drills
+# a restart, not a resume): mamba2-130m after steps 9, 19 and 29,
+# internvl2-2b after 4 and 9 (22.7 GB each), olmoe-1b-7b after 20 only
+# (41.6 GB), and each restarts from the last save before its failure
 FULL_RUNS = {r.arch: r for r in (
     FullRun("mamba2-130m", 8, 4096, 30, 10, 15),
-    FullRun("internvl2-2b", 4, 2048, 12, 4, 6, peak_lr=1e-3),
-    FullRun("olmoe-1b-7b", 4, 2048, 40, 20, 22, peak_lr=1e-4,
+    FullRun("internvl2-2b", 4, 2048, 12, 5, 6, peak_lr=1e-3),
+    FullRun("olmoe-1b-7b", 4, 2048, 40, 21, 22, peak_lr=1e-4,
             opt_8bit=True, warmup=2))}
 
 

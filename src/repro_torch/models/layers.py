@@ -23,9 +23,10 @@ Params = Mapping[str, torch.Tensor]
 # ----------------------------------------------------------------------
 def normal(generator: torch.Generator, shape, scale: float,
            dtype: torch.dtype, device) -> torch.Tensor:
-    """fp32 standard normal × scale, cast to dtype (the JAX init recipe)."""
-    return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device) * scale).to(dtype)
+    """fp32 standard normal × scale, cast to dtype (the JAX init recipe).
+    Scaled in place: one fp32 tensor of the shape, not two."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device).mul_(scale).to(dtype)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, *,

@@ -5,24 +5,26 @@ pattern.  Each segment's parameters are stacked on a leading repeat axis,
 as in the JAX package, so parameters map one to one; the port loops over
 the repeats where the JAX package scans.
 
-The port runs attention + dense-FFN blocks (the dense GQA families:
-deepseek-7b, chatglm3, deepseek-coder, nemotron, internvl2's language
-model), Mamba2 blocks (mamba2-130m) and MoE FFN blocks on one device
-(olmoe-1b-7b; with the other two, jamba-v0.1-52b).  MLA attention and the
-encoder raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Every architecture of the configs builds: attention + dense-FFN blocks
+(deepseek-7b, chatglm3, deepseek-coder, nemotron, internvl2's language
+model), Mamba2 blocks (mamba2-130m), MoE FFN blocks on one device
+(olmoe-1b-7b, jamba-v0.1-52b), MLA attention after a first-dense split with
+the multi-token-prediction head (deepseek-v3), and an encoder whose
+states the decoder blocks cross-attend to (whisper).
 
 The Model exposes:
 - ``init(generator)``               → fills the parameters, returns self
 - ``loss(batch)``                   → (scalar loss, metrics) for train_step
 - ``forward(batch)``                → logits (prefill)
+- ``encode(batch)``                 → encoder states (whisper)
 - ``init_cache(batch, max_len)``    → decode cache (nested lists of dicts)
-- ``decode_step(caches, tokens, index)`` → (logits, caches)
+- ``decode_step(caches, tokens, index, enc_out=None)`` → (logits, caches)
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.utils.checkpoint
@@ -96,17 +98,6 @@ def derive_segments(cfg: ArchConfig, *, cross: bool = False,
     return segments
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder and cross-attention blocks are not ported "
-            "yet (ROADMAP Queue 1, remaining families: whisper)")
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1, "
-            "MLA and MTP)")
-
-
 # RunConfig fields the port reads (``opt_8bit`` and ``grad_compression``
 # in ``launch.train``); the others wait for multi-GPU sync (ROADMAP Queue
 # 1 item 5)
@@ -131,18 +122,21 @@ def _check_run(run: RunConfig) -> None:
 # parameters
 # ----------------------------------------------------------------------
 class _Block(nn.Module):
-    """One pattern position of a segment, every tensor stacked [R, ...].
+    """One pattern position of a segment, every tensor stacked [R, ...];
+    with ``repeats=None`` one block, unstacked (the MTP block).
 
     Parameter names follow the JAX pytree (``ln1``, ``attn.wq``, ...), so
     ``named_parameters`` maps onto the checkpoint keys."""
 
-    def __init__(self, spec: BlockSpec, cfg: ArchConfig, repeats: int,
-                 dtype: torch.dtype, device: torch.device):
+    def __init__(self, spec: BlockSpec, cfg: ArchConfig,
+                 repeats: Optional[int], dtype: torch.dtype,
+                 device: torch.device):
         super().__init__()
         self.cfg = cfg
+        lead = () if repeats is None else (repeats,)
 
         def empty(*shape, dtype=dtype):
-            return nn.Parameter(torch.empty((repeats,) + shape, dtype=dtype,
+            return nn.Parameter(torch.empty(lead + shape, dtype=dtype,
                                             device=device))
 
         def stacked(shapes):
@@ -157,9 +151,14 @@ class _Block(nn.Module):
 
         self.ln1 = empty(cfg.d_model)
         if spec.mixer == "attn":
-            self.attn = stacked(attn.gqa_shapes(cfg))
+            self.attn = stacked(attn.mla_shapes(cfg)
+                                if cfg.attn_type == "mla"
+                                else attn.gqa_shapes(cfg))
         else:
             self.ssm = with_fp32(ssm.ssm_shapes(cfg), ssm.FP32_PARAMS)
+        if spec.cross:
+            self.ln_x = empty(cfg.d_model)
+            self.xattn = stacked(attn.gqa_shapes(cfg))
         if spec.ffn == "dense":
             self.ln2 = empty(cfg.d_model)
             self.mlp = stacked(mlp_shapes(cfg.d_model, cfg.d_ff,
@@ -168,40 +167,81 @@ class _Block(nn.Module):
             self.ln2 = empty(cfg.d_model)
             self.moe = with_fp32(moe.moe_shapes(cfg), moe.FP32_PARAMS)
 
-    def init_repeat(self, generator: torch.Generator, r: int) -> None:
-        """Draw repeat r's parameters as the JAX block init does."""
+    def init_repeat(self, generator: torch.Generator,
+                    r: Optional[int]) -> None:
+        """Draw repeat r's parameters (all of an unstacked block's: r None)
+        as the JAX block init does.  Each MoE tensor is drawn in fp32 and
+        copied (cast) into its stack before the next is drawn, so init
+        holds one fp32 draw beside the parameters."""
         cfg, p = self.cfg, self.ln1
-        self.ln1[r].fill_(1.0)
-        if hasattr(self, "attn"):
-            mixer, init = self.attn, attn.gqa_init
-        else:
-            mixer, init = self.ssm, ssm.ssm_init
-        for name, w in init(generator, cfg, dtype=p.dtype,
-                            device=p.device).items():
-            mixer[name][r].copy_(w)
-        if hasattr(self, "mlp"):
-            self.ln2[r].fill_(1.0)
-            for name, w in mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                    cfg.mlp_type, dtype=p.dtype,
-                                    device=p.device).items():
-                self.mlp[name][r].copy_(w)
-        if hasattr(self, "moe"):
-            self.ln2[r].fill_(1.0)
-            for name, w in moe.moe_init(generator, cfg, dtype=p.dtype,
-                                        device=p.device).items():
-                self.moe[name][r].copy_(w)
+        kw = dict(dtype=p.dtype, device=p.device)
 
-    def at(self, r: int) -> dict:
-        """Repeat r's parameters as the nested dict the layer functions take."""
+        def rows(t):
+            return t if r is None else t[r]
+
+        def fill(params, draws):
+            for name, w in draws:
+                rows(params[name]).copy_(w)
+                del w               # freed before the next draw
+
+        rows(self.ln1).fill_(1.0)
+        if hasattr(self, "attn"):
+            init = attn.mla_init if cfg.attn_type == "mla" else attn.gqa_init
+            fill(self.attn, init(generator, cfg, **kw).items())
+        else:
+            fill(self.ssm, ssm.ssm_init(generator, cfg, **kw).items())
+        if hasattr(self, "xattn"):
+            rows(self.ln_x).fill_(1.0)
+            fill(self.xattn, attn.gqa_init(generator, cfg, **kw).items())
+        if hasattr(self, "mlp"):
+            rows(self.ln2).fill_(1.0)
+            fill(self.mlp, mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                    cfg.mlp_type, **kw).items())
+        if hasattr(self, "moe"):
+            rows(self.ln2).fill_(1.0)
+            fill(self.moe, moe.moe_draws(generator, cfg, device=p.device))
+
+    def at(self, r: Optional[int]) -> dict:
+        """Repeat r's parameters (an unstacked block's: r None) as the
+        nested dict the layer functions take."""
+        def rows(t):
+            return t if r is None else t[r]
         out = {}
         for name, child in self.named_children():
-            out[name] = {k: v[r] for k, v in child.items()}
+            out[name] = {k: rows(v) for k, v in child.items()}
         for name, param in self.named_parameters(recurse=False):
-            out[name] = param[r]
+            out[name] = rows(param)
         return out
 
 
+class _Mtp(nn.Module):
+    """The multi-token-prediction head's parameters, unstacked as in JAX:
+    ``proj`` [2d, d], one attention + dense-FFN ``block`` and ``ln``."""
+
+    SPEC = BlockSpec("attn", "dense")
+
+    def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = nn.Parameter(torch.empty((2 * d, d), dtype=dtype,
+                                             device=device))
+        self.block = _Block(self.SPEC, cfg, None, dtype, device)
+        self.ln = nn.Parameter(torch.empty((d,), dtype=dtype, device=device))
+
+    def init(self, generator: torch.Generator) -> None:
+        d = self.ln.shape[0]
+        self.proj.copy_(dense_init(generator, 2 * d, d, dtype=self.ln.dtype,
+                                   device=self.ln.device))
+        self.block.init_repeat(generator, None)
+        self.ln.fill_(1.0)
+
+
 class Model(nn.Module):
+    # whisper's encoder: non-causal self-attention (with RoPE, as in JAX)
+    # and a dense FFN, stacked under ``encoder``
+    ENC_SPEC = BlockSpec("attn", "dense", causal=False)
+
     def __init__(self, cfg: ArchConfig, run: RunConfig = RunConfig(), *,
                  dtype: torch.dtype = torch.bfloat16,
                  device=None):
@@ -210,7 +250,12 @@ class Model(nn.Module):
         self.run = run
         self.dtype = dtype
         self.segments_spec = derive_segments(cfg)
-        _check_supported(cfg)
+        if cfg.encoder_layers:
+            # decoder blocks cross-attend to the encoder's states
+            self.segments_spec = [
+                Segment(tuple(dataclasses.replace(s, cross=True)
+                              for s in seg.pattern), seg.repeats)
+                for seg in self.segments_spec]
         _check_run(run)
         dev = _device.resolve(device)
         d, V = cfg.d_model, cfg.vocab_size
@@ -228,6 +273,12 @@ class Model(nn.Module):
             nn.ModuleList(_Block(spec, cfg, seg.repeats, dtype, dev)
                           for spec in seg.pattern)
             for seg in self.segments_spec)
+        if cfg.encoder_layers:
+            self.encoder = _Block(self.ENC_SPEC, cfg, cfg.encoder_layers,
+                                  dtype, dev)
+            self.enc_norm = empty(d)
+        if cfg.mtp:
+            self.mtp = _Mtp(cfg, dtype, dev)
 
     @property
     def device(self) -> torch.device:
@@ -253,26 +304,45 @@ class Model(nn.Module):
             for r in range(seg.repeats):
                 for block in blocks:
                     block.init_repeat(generator, r)
+        if cfg.encoder_layers:
+            for r in range(cfg.encoder_layers):
+                self.encoder.init_repeat(generator, r)
+            self.enc_norm.fill_(1.0)
+        if cfg.mtp:
+            self.mtp.init(generator)
         return self
 
     # ------------------------------------------------------------------
     def _apply_block(self, bp: dict, spec: BlockSpec, x, *,
-                     positions=None, cache=None, cache_index=None):
+                     positions=None, cache=None, cache_index=None,
+                     enc_out=None):
         """One block: (x, the block's MoE aux loss, or None)."""
         cfg, run = self.cfg, self.run
         aux = None
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
         if spec.mixer == "attn":
-            out, _ = attn.gqa_apply(
-                bp["attn"], h, cfg, positions=positions,
-                cache=cache.get("attn") if cache else None,
-                cache_index=cache_index, causal=spec.causal,
-                impl=run.attn_impl)
+            c = cache.get("attn") if cache else None
+            if cfg.attn_type == "mla":
+                out, _ = attn.mla_apply(bp["attn"], h, cfg,
+                                        positions=positions, cache=c,
+                                        cache_index=cache_index,
+                                        impl=run.attn_impl)
+            else:
+                out, _ = attn.gqa_apply(bp["attn"], h, cfg,
+                                        positions=positions, cache=c,
+                                        cache_index=cache_index,
+                                        causal=spec.causal,
+                                        impl=run.attn_impl)
         else:
             out, _ = ssm.ssm_apply(bp["ssm"], h, cfg,
                                    cache=cache.get("ssm") if cache else None,
                                    chunk=run.ssm_chunk or None)
         x = x + out
+        if spec.cross and enc_out is not None:
+            h = rmsnorm(bp["ln_x"], x, cfg.norm_eps)
+            out, _ = attn.gqa_apply(bp["xattn"], h, cfg, kv_src=enc_out,
+                                    impl=run.attn_impl)
+            x = x + out
         if spec.ffn == "dense":
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
             x = x + mlp(bp["mlp"], h, cfg.mlp_type)
@@ -283,7 +353,7 @@ class Model(nn.Module):
         return x, aux
 
     def _run_repeat(self, si: int, r: int, x, *, positions=None,
-                    caches=None, cache_index=None):
+                    caches=None, cache_index=None, enc_out=None):
         """Repeat r of segment si: each of its pattern's blocks in turn.
         Returns (x, the MoE blocks' summed aux loss, or None)."""
         total_aux = None
@@ -294,13 +364,13 @@ class Model(nn.Module):
                          for name, c in caches[si][j].items()}
             x, aux = self._apply_block(
                 self.segments[si][j].at(r), spec, x, positions=positions,
-                cache=cache, cache_index=cache_index)
+                cache=cache, cache_index=cache_index, enc_out=enc_out)
             if aux is not None:
                 total_aux = aux if total_aux is None else total_aux + aux
         return x, total_aux
 
     def _run_segments(self, x, *, positions=None, caches=None,
-                      cache_index=None):
+                      cache_index=None, enc_out=None):
         """Loop each segment over its repeats.  Returns (x, the MoE blocks'
         summed aux loss: a 0-d fp32 tensor, or 0.0 without MoE blocks).
         Caches are written in place.  With ``run.remat`` and autograd
@@ -309,7 +379,8 @@ class Model(nn.Module):
         recomputed in the backward."""
         remat = (self.run.remat and caches is None
                  and torch.is_grad_enabled())
-        kw = dict(positions=positions, caches=caches, cache_index=cache_index)
+        kw = dict(positions=positions, caches=caches, cache_index=cache_index,
+                  enc_out=enc_out)
         total_aux = 0.0
         for si, seg in enumerate(self.segments_spec):
             for r in range(seg.repeats):
@@ -324,6 +395,24 @@ class Model(nn.Module):
         return x, total_aux
 
     # ------------------------------------------------------------------
+    def _encode_layer(self, r: int, x):
+        return self._apply_block(self.encoder.at(r), self.ENC_SPEC, x)[0]
+
+    def encode(self, batch: dict) -> torch.Tensor:
+        """Whisper's encoder over precomputed frame embeddings
+        ``batch["audio_embeds"]`` [B, frames, d] (the conv front end is a
+        stub, as in the JAX package); each layer under
+        ``torch.utils.checkpoint`` where ``_run_segments`` would use it."""
+        x = batch["audio_embeds"].to(self.dtype)
+        remat = self.run.remat and torch.is_grad_enabled()
+        for r in range(self.cfg.encoder_layers):
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._encode_layer, r, x, use_reentrant=False)
+            else:
+                x = self._encode_layer(r, x)
+        return rmsnorm(self.enc_norm, x, self.cfg.norm_eps)
+
     def _embed_inputs(self, batch: dict):
         """Token embedding, after the projected vision prefix if any.
         Returns (x, the prefix's length)."""
@@ -343,23 +432,22 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
+        enc_out = self.encode(batch) if self.cfg.encoder_layers else None
         x, _ = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._run_segments(x, positions=positions)
+        x, _ = self._run_segments(x, positions=positions, enc_out=enc_out)
         return self._head(x)
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Next-token CE over the text region (after any vision prefix),
-        plus ``router_aux_weight`` × the MoE blocks' aux loss.  Returns
-        (loss, {"ce", "aux", "loss"}), 0-d fp32 tensors."""
+        plus ``router_aux_weight`` × the MoE blocks' aux loss, plus 0.3 ×
+        the MTP head's CE where the config has one.  Returns (loss, {"ce",
+        "aux", "loss"} and "mtp_ce" with MTP), 0-d fp32 tensors."""
         cfg = self.cfg
-        if cfg.mtp:
-            raise NotImplementedError(
-                f"{cfg.name}: the multi-token-prediction head is not ported "
-                "yet (ROADMAP Queue 1 item 2, MLA and MTP)")
+        enc_out = self.encode(batch) if cfg.encoder_layers else None
         x, n_prefix = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = self._run_segments(x, positions=positions)
+        x, aux = self._run_segments(x, positions=positions, enc_out=enc_out)
         tokens = batch["tokens"]
         h = x[:, n_prefix:]                       # text region only
         logits = self._head(h[:, :-1])
@@ -368,24 +456,44 @@ class Model(nn.Module):
         ce = cross_entropy(logits, tokens[:, 1:])
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + cfg.router_aux_weight * aux
-        return loss, {"ce": ce, "aux": aux, "loss": loss}
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp:
+            # predict t+2 from [h_t ; emb(t+1)] through one more block; its
+            # aux loss is dropped and its logits are fp32, as in JAX
+            mtp = self.mtp
+            h_in = rmsnorm(mtp.ln, h[:, :-1], cfg.norm_eps)
+            nxt = self.embed[tokens[:, 1:]].to(self.dtype)
+            z = torch.cat([h_in, nxt], dim=-1) @ mtp.proj
+            z, _ = self._apply_block(mtp.block.at(None), mtp.SPEC, z,
+                                     positions=positions[:z.shape[1]])
+            mtp_ce = cross_entropy(self._head(z[:, :-1]).float(),
+                                   tokens[:, 2:])
+            loss = loss + 0.3 * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = loss
+        return loss, metrics
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> list:
         """caches[segment][pattern position] = {"attn": {"k", "v"}}, each
-        [R, B, max_len, K, hd] in the model dtype, or {"ssm": {"conv",
-        "state"}}: [R, B, W-1, conv_dim] in the model dtype and [R, B, H,
-        P, N] in fp32 (an SSM cache does not grow with max_len)."""
+        [R, B, max_len, K, hd] in the model dtype (MLA: {"ckv", "kr"},
+        [R, B, max_len, kv_lora] and [R, B, max_len, rope_d]), or {"ssm":
+        {"conv", "state"}}: [R, B, W-1, conv_dim] in the model dtype and
+        [R, B, H, P, N] in fp32 (an SSM cache does not grow with
+        max_len)."""
         caches = []
         kw = dict(dtype=self.dtype, device=self.device)
         for seg in self.segments_spec:
             seg_caches = []
             for spec in seg.pattern:
                 if spec.mixer == "attn":
-                    name, one = "attn", attn.gqa_cache_init(
-                        self.cfg, batch_size, max_len, **kw)
+                    init = (attn.mla_cache_init
+                            if self.cfg.attn_type == "mla"
+                            else attn.gqa_cache_init)
+                    name, one = "attn", init(self.cfg, batch_size, max_len,
+                                             **kw)
                 else:
                     name, one = "ssm", ssm.ssm_cache_init(
                         self.cfg, batch_size, **kw)
@@ -396,8 +504,11 @@ class Model(nn.Module):
             caches.append(seg_caches)
         return caches
 
-    def decode_step(self, caches, tokens: torch.Tensor, index: int):
+    def decode_step(self, caches, tokens: torch.Tensor, index: int, *,
+                    enc_out: Optional[torch.Tensor] = None):
         """tokens: [B,S] written at cache rows index..index+S (a Python int).
+        ``enc_out`` (``encode``'s output) feeds every cross-attention block,
+        recomputing its K/V at each call, as the JAX package does.
 
         S is 1 for a decode step; at index 0 a whole prompt prefills in one
         call.  Attention blocks run it through K1 on the "kernel" path; SSM
@@ -407,7 +518,14 @@ class Model(nn.Module):
         their experts on K3 with a capacity computed from the B·S tokens of
         the call, as JAX's ``forward`` over the same tokens does: where an
         expert overflows, a one-call prefill drops assignments that JAX's
-        token-by-token decode (B tokens a call) keeps."""
+        token-by-token decode (B tokens a call) keeps.  MLA blocks prefill
+        at index 0 through K1 on the expanded latents and decode in the
+        latent space.  An encoder-decoder model needs ``enc_out``: without
+        it the cross-attention blocks would be skipped."""
+        if self.cfg.encoder_layers and enc_out is None:
+            raise ValueError(f"{self.cfg.name} has an encoder: decode_step "
+                             f"needs its enc_out (Model.encode)")
         x = self.embed[tokens].to(self.dtype)
-        x, _ = self._run_segments(x, caches=caches, cache_index=index)
+        x, _ = self._run_segments(x, caches=caches, cache_index=index,
+                                  enc_out=enc_out)
         return self._head(x), caches

@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+from typing import Iterator
 
 import torch
 import torch.nn.functional as F
@@ -37,25 +38,32 @@ def moe_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def moe_draws(generator: torch.Generator, cfg: ArchConfig, *, device=None
+              ) -> Iterator[tuple[str, torch.Tensor]]:
+    """One block's parameters as fp32 draws (normal × scale), (name,
+    tensor) one at a time in the order the JAX ``moe_init`` lists them,
+    each drawn when it is asked for; the caller casts those not in
+    ``FP32_PARAMS``.  A caller that copies each into its place (the copy
+    casts) holds one fp32 draw at a time: an expert stack of deepseek-v3
+    is 15.0 GB in fp32."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
+    kw = dict(dtype=torch.float32, device=device)
+    yield "router", dense_init(generator, d, E, **kw)
+    yield "w_in", normal(generator, (E, d, f), 1.0 / math.sqrt(d), **kw)
+    yield "w_gate", normal(generator, (E, d, f), 1.0 / math.sqrt(d), **kw)
+    yield "w_out", normal(generator, (E, f, d), 1.0 / math.sqrt(f), **kw)
+    if cfg.n_shared_experts:
+        sf = cfg.n_shared_experts * f
+        yield "shared_in", dense_init(generator, d, sf, **kw)
+        yield "shared_gate", dense_init(generator, d, sf, **kw)
+        yield "shared_out", dense_init(generator, sf, d, **kw)
+
+
 def moe_init(generator: torch.Generator, cfg: ArchConfig, *,
              dtype=torch.bfloat16, device=None) -> dict[str, torch.Tensor]:
     """One block's parameters, drawn as the JAX ``moe_init`` draws them."""
-    E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff
-    p = {"router": dense_init(generator, d, E, dtype=torch.float32,
-                              device=device),
-         "w_in": normal(generator, (E, d, f), 1.0 / math.sqrt(d), dtype,
-                        device),
-         "w_gate": normal(generator, (E, d, f), 1.0 / math.sqrt(d), dtype,
-                          device),
-         "w_out": normal(generator, (E, f, d), 1.0 / math.sqrt(f), dtype,
-                         device)}
-    if cfg.n_shared_experts:
-        sf = cfg.n_shared_experts * f
-        kw = dict(dtype=dtype, device=device)
-        p["shared_in"] = dense_init(generator, d, sf, **kw)
-        p["shared_gate"] = dense_init(generator, d, sf, **kw)
-        p["shared_out"] = dense_init(generator, sf, d, **kw)
-    return p
+    return {name: w if name in FP32_PARAMS else w.to(dtype)
+            for name, w in moe_draws(generator, cfg, device=device)}
 
 
 def _capacity(n_tokens: int, cfg: ArchConfig) -> int:

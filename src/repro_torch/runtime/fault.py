@@ -70,6 +70,9 @@ class LoopConfig:
     keep: int = 3
     fail_at_step: Optional[int] = None      # failure injection (tests)
     max_restarts: int = 3
+    # also save after the last step (as the JAX loop always does); a run
+    # that only drills a restart can skip that write
+    ckpt_final: bool = True
 
 
 def _block_until_ready(state: dict) -> None:
@@ -122,8 +125,8 @@ def run_training(loop: LoopConfig, *,
                     monitor.record(step, dt)
                 if on_step is not None:
                     on_step(step, metrics)
-                if (step + 1) % loop.ckpt_every == 0 \
-                        or step == loop.total_steps - 1:
+                if (step + 1) % loop.ckpt_every == 0 or (
+                        loop.ckpt_final and step == loop.total_steps - 1):
                     t0 = time.perf_counter()
                     if loop.ckpt_async:
                         pending = ckpt_lib.save_async(

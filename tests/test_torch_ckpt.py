@@ -103,6 +103,37 @@ def test_port_saved_state_restores_into_jax(jax_side, tmp_path):
     _assert_states_close(state, jnext)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-large-v3"])
+def test_train_states_with_mtp_and_encoder_keys_go_both_ways(arch, tmp_path):
+    """deepseek-v3's (MLA, the unstacked ``mtp/...`` head) and whisper's
+    (``encoder/...``, ``enc_norm``, cross-attention) fp32 train states: a
+    JAX save restores into the port, and the port's save of that state
+    restores into a fresh JAX state, both bit for bit."""
+    run = JRunConfig(remat=False, attn_impl="xla")
+    jm = JModel(jconfigs.get_smoke(arch), run, dtype=jnp.float32)
+    jopt = JAdamW(JAdamWConfig(lr=jcosine(1e-2, warmup=2, total=10)))
+    jstate = jtrain.init_train_state(jm, jopt, run, jax.random.PRNGKey(0))
+    jckpt.save(str(tmp_path / "jax"), 0, jstate)
+    model = TModel(tconfigs.get_smoke(arch), TRunConfig(),
+                   dtype=torch.float32, device="cpu")
+    opt = AdamW(AdamWConfig(lr=cosine_schedule(1e-2, warmup=2, total=10)))
+    state = ttrain.init_train_state(model, opt, TRunConfig(),
+                                    torch.Generator().manual_seed(1))
+    ckpt.restore(str(tmp_path / "jax"), 0, state)
+    want = jckpt._flatten(jstate)
+    got = ckpt._flatten(state)
+    assert got.keys() == want.keys()
+    assert any(k.startswith(("params/mtp/", "params/encoder/"))
+               for k in got)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    ckpt.save(str(tmp_path / "port"), 0, state)
+    back = jckpt.restore(str(tmp_path / "port"), 0, jtrain.init_train_state(
+        jm, jopt, run, jax.random.PRNGKey(5)))
+    for key, arr in jckpt._flatten(back).items():
+        np.testing.assert_array_equal(arr, want[key], err_msg=key)
+
+
 def _tiny_state(value):
     model = torch.nn.Linear(3, 2)
     torch.nn.init.constant_(model.weight, value)

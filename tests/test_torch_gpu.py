@@ -8,6 +8,7 @@ Run on a machine with a CUDA device (it imports no JAX):
     python -m pytest -m gpu tests/test_torch_gpu.py -q
 
 Without a card every test here skips; with one, a missing ``nvcc`` fails.
+The deepseek-v3 K3 shapes hold 7.5 GB of weights a case.
 """
 import dataclasses
 
@@ -67,6 +68,9 @@ def _inputs(B, S, H, K, hd, hdv, dtype, device):
     (4, 1024, 32, 8, 128, 128, True, torch.bfloat16),
     (4, 2048, 16, 8, 128, 128, True, torch.bfloat16),   # internvl2 training
     (4, 2048, 16, 16, 128, 128, True, torch.bfloat16),  # olmoe training
+    (4, 1024, 128, 128, 192, 128, True, torch.bfloat16),  # deepseek-v3 MLA
+    (4, 1500, 20, 20, 64, 64, False, torch.bfloat16),   # whisper encoder
+    (4, 128, 20, 20, 64, 64, True, torch.bfloat16),     # whisper decoder
 ])
 def test_kernel_matches_plain(cuda, B, S, H, K, hd, hdv, causal, dtype):
     q, k, v = _inputs(B, S, H, K, hd, hdv, dtype, cuda)
@@ -190,21 +194,28 @@ def test_wrapper_launches_directly_where_autograd_records_nothing(
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-130m",
-                                  "olmoe-1b-7b"])
+                                  "olmoe-1b-7b", "deepseek-v3-671b",
+                                  "whisper-large-v3"])
 def test_loss_and_grads_on_the_card_match_cpu(cuda, arch):
     """Model.loss and every gradient of a smoke config in fp32 (remat on:
     each kernel forward launched twice a layer) on the card against CPU
-    copies, within 1e-4 of each tensor's max."""
+    copies, within 1e-4 of each tensor's max.  deepseek-v3: MLA, MoE
+    after a dense layer and the MTP loss; whisper: the encoder over audio
+    frames and cross-attention."""
     cfg = configs.get_smoke(arch)
     model = Model(cfg, dtype=torch.float32,
                   device=cuda).init(torch.Generator(cuda).manual_seed(0))
     cpu = Model(cfg, dtype=torch.float32, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
-                           generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                     generator=gen)}
+    if cfg.encoder_layers:
+        batch["audio_embeds"] = torch.randn(
+            (2, cfg.max_source_positions, cfg.d_model), generator=gen)
     out = []
     for m in (model, cpu):
-        loss, _ = m.loss({"tokens": tokens.to(m.device)})
+        loss, _ = m.loss({k: v.to(m.device) for k, v in batch.items()})
         grads = torch.autograd.grad(loss, list(m.parameters()))
         out.append((loss.item(), [g.cpu() for g in grads]))
     (loss, grads), (want_loss, want_grads) = out
@@ -361,7 +372,8 @@ def test_ssd_chunked_matches_its_plain_route(cuda, B, L, H, G, P, N, chunk,
 
 def test_mamba2_serving_runs_k2_once_per_layer_in_prefill(cuda):
     cfg = configs.get(serve.SSM_ARCH)
-    model, prompts = serve.setup(cfg, 2, 512, cuda)
+    model, requests = serve.setup(cfg, 2, 512, cuda)
+    prompts = requests["tokens"]
     with torch.inference_mode():
         cache = model.init_cache(2, 516)
         before = ops.ssd_chunked.launches
@@ -379,7 +391,8 @@ def test_mamba2_ragged_prefill_runs_k2_twice_per_layer(cuda):
     launches a layer in the one-call prefill, none in decode; its logits
     agree with token-by-token decode (the sequential recurrence) in fp32."""
     cfg = configs.get(serve.SSM_ARCH)
-    model, prompts = serve.setup(cfg, 2, 300, cuda, dtype=torch.float32)
+    model, requests = serve.setup(cfg, 2, 300, cuda, dtype=torch.float32)
+    prompts = requests["tokens"]
     with torch.inference_mode():
         cache = model.init_cache(2, 304)
         before = ops.ssd_chunked.launches
@@ -485,6 +498,64 @@ def test_olmoe_prefill_runs_k3_three_times_per_moe_layer(cuda):
         assert ops.grouped_matmul.launches == k3 + 3 * cfg.n_layers * 5
         assert ops.flash_attention.launches == k1 + cfg.n_layers
     assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("E,C,d,f", [
+    (256, 160, 7168, 2048),     # deepseek-v3 prefill x@w_gate, x@w_in
+    (256, 160, 2048, 7168),     # deepseek-v3 prefill h@w_out
+    (256, 8, 7168, 2048),       # deepseek-v3 decode
+    (256, 8, 2048, 7168),
+])
+def test_grouped_matmul_at_deepseek_v3_shapes(cuda, E, C, d, f):
+    """K3 at 256 experts and d_model 7168 (bf16): C 160 is no multiple of
+    the 128-row tile, and d 7168 the longest reduction it runs."""
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((E, C, d), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((E, d, f), generator=g, device=cuda).to(torch.bfloat16)
+    before = ops.grouped_matmul.launches
+    with torch.inference_mode():
+        got = ops.grouped_matmul(x, w)
+        want = ref.gmm_ref(x, w)
+        torch.cuda.synchronize()
+    assert ops.grouped_matmul.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "whisper-large-v3"])
+def test_mla_and_whisper_serving_launch_counts(cuda, arch):
+    """deepseek-v3 (smoke, fp32): the one-call prefill launches K1 once a
+    layer (MLA at its qk/v head dims) and K3 three times for the MoE
+    layer; a decode step (absorbed, in the latent space) K3 three times
+    and K1 never.  whisper: encoding launches K1 once an encoder layer
+    (non-causal), the prefill once a decoder layer, decode never.  The
+    kernel path's logits equal the plain path's within fp32's 1e-4 (in
+    bf16 the smoke MoE's top-2 of 8 experts flips on near-ties)."""
+    cfg = configs.get_smoke(arch)
+    model, requests = serve.setup(cfg, 2, 24, cuda, dtype=torch.float32)
+    n_moe = sum(spec.ffn == "moe" for seg in model.segments_spec
+                for spec in seg.pattern for _ in range(seg.repeats))
+    with torch.inference_mode():
+        k1, k3 = ops.flash_attention.launches, ops.grouped_matmul.launches
+        enc = serve.encode(model, requests)
+        assert ops.flash_attention.launches == k1 + cfg.encoder_layers
+        cache = model.init_cache(2, 30)
+        tok, logits, cache = serve.prefill(model, cache, requests["tokens"],
+                                           enc)
+        assert ops.flash_attention.launches == \
+            k1 + cfg.encoder_layers + cfg.n_layers
+        assert ops.grouped_matmul.launches == k3 + 3 * n_moe
+        serve.decode(model, cache, tok, 24, 4, enc)
+        assert ops.flash_attention.launches == \
+            k1 + cfg.encoder_layers + cfg.n_layers
+        assert ops.grouped_matmul.launches == k3 + 3 * n_moe * 5
+        model.run = dataclasses.replace(model.run, attn_impl="plain")
+        plain_enc = serve.encode(model, requests)
+        _, want, _ = serve.prefill(model, model.init_cache(2, 30),
+                                   requests["tokens"], plain_enc)
+    assert n_moe == (1 if cfg.n_experts else 0)
+    assert torch.isfinite(logits).all()
+    torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
 
 
 def test_optimizer_extras_on_the_card_match_cpu(cuda, monkeypatch):

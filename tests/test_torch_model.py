@@ -148,7 +148,8 @@ def test_greedy_serve_tokens_match_jax(arch, tmp_path):
     want = np.concatenate([np.asarray(w) for w in want], axis=1)
 
     with torch.inference_mode():
-        got = tserve.generate(tm, torch.from_numpy(prompts).long(), gen)
+        got = tserve.generate(
+            tm, {"tokens": torch.from_numpy(prompts).long()}, gen)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -200,6 +201,10 @@ def test_init_matches_reference_shapes_and_scales():
     ["--device", "cpu"],
     ["--device", "cpu", "--arch", "chatglm3-6b", "--batch", "2",
      "--prompt-len", "20", "--gen", "3"],
+    ["--device", "cpu", "--arch", "deepseek-v3-671b", "--batch", "2",
+     "--gen", "4"],
+    ["--device", "cpu", "--arch", "whisper-large-v3", "--batch", "2",
+     "--gen", "4"],
 ])
 def test_serve_main_on_cpu(argv, capsys):
     out = tserve.main(argv)
@@ -219,12 +224,52 @@ def test_model_without_device_raises_when_cuda_is_absent():
         TModel(tconfigs.get_smoke("deepseek-7b"))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("deepseek-v3-671b", "MLA"), ("whisper-large-v3", "whisper"),
+@pytest.mark.parametrize("arch", sorted(tconfigs.ARCHS))
+def test_every_arch_builds_with_the_jax_parameter_tree(arch):
+    """All ten architectures build on the CPU at smoke size, with JAX's
+    ``Model.init`` keys and shapes (MLA, ``mtp/...`` unstacked, whisper's
+    ``encoder/...`` and cross-attention included), and fill them."""
+    jm = JModel(jconfigs.get_smoke(arch), JRunConfig(remat=False),
+                dtype=jnp.float32)
+    want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                jax.eval_shape(jm.init, jax.random.PRNGKey(0)))[0]}
+    tm = TModel(tconfigs.get_smoke(arch), dtype=torch.float32,
+                device="cpu").init(torch.Generator().manual_seed(0))
+    tflat = bridge.to_flat(tm)
+    assert {k: v.shape for k, v in tflat.items()} == want
+    assert all(np.isfinite(v).all() for v in tflat.values())
+
+
+@pytest.mark.parametrize("arch,keys", [
+    ("deepseek-v3-671b", ("mtp/proj", "mtp/ln", "mtp/block/attn/wq_a",
+                          "mtp/block/mlp/w_gate", "segments/1/0/moe/w_in")),
+    ("whisper-large-v3", ("encoder/attn/wq", "encoder/mlp/w_in", "enc_norm",
+                          "segments/0/0/xattn/wv", "segments/0/0/ln_x")),
 ])
-def test_unported_blocks_name_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TModel(tconfigs.get_smoke(arch), device="cpu")
+def test_checkpoint_bridge_round_trip_keeps_mtp_and_encoder_keys(
+        arch, keys, tmp_path):
+    """A JAX bf16 save of deepseek-v3 (MLA, a dense then an MoE segment,
+    the unstacked MTP head) and of whisper (the stacked encoder, the
+    cross-attention) loads through the bridge and comes back bit for bit;
+    the MTP block has no repeat axis."""
+    jm = JModel(jconfigs.get_smoke(arch), JRunConfig(remat=False),
+                dtype=jnp.bfloat16)
+    step_dir = ckpt.save(str(tmp_path), 0, jm.init(jax.random.PRNGKey(1)))
+    flat = bridge.load_npz(step_dir)
+    tm = TModel(tconfigs.get_smoke(arch), dtype=torch.bfloat16,
+                device="cpu")
+    bridge.from_flat(flat, tm)
+    back = bridge.to_flat(tm)
+    assert set(keys) <= set(flat) and sorted(back) == sorted(flat)
+    for key in flat:
+        np.testing.assert_array_equal(back[key], flat[key])
+    if jm.cfg.mtp:
+        d = jm.cfg.d_model
+        assert flat["mtp/proj"].shape == (2 * d, d)
+        assert flat["mtp/block/attn/wkv_a"].shape == (
+            d, jm.cfg.kv_lora_rank + jm.cfg.qk_rope_head_dim)
 
 
 @pytest.mark.parametrize("field,value", [
@@ -258,7 +303,8 @@ def test_mamba2_model_builds(dtype):
         "in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
         "out_proj")} <= names
     with torch.inference_mode():
-        out = tserve.generate(tm, torch.zeros((2, 8), dtype=torch.long), 3)
+        out = tserve.generate(
+            tm, {"tokens": torch.zeros((2, 8), dtype=torch.long)}, 3)
     assert tuple(out.shape) == (2, 3)
 
 

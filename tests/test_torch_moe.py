@@ -374,7 +374,8 @@ def test_greedy_serve_tokens_match_jax(tmp_path):
         want.append(tok)
     want = np.concatenate([np.asarray(w) for w in want], axis=1)
     with torch.inference_mode():
-        got = tserve.generate(tm, torch.from_numpy(prompts).long(), gen)
+        got = tserve.generate(
+            tm, {"tokens": torch.from_numpy(prompts).long()}, gen)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -437,8 +438,49 @@ def test_model_builds_with_the_jax_parameter_names(arch, dtype):
         assert (tparams[key].dtype == torch.float32) == (
             arr.dtype == jnp.float32), key
     with torch.inference_mode():
-        out = tserve.generate(tm, torch.zeros((2, 8), dtype=torch.long), 3)
+        out = tserve.generate(
+            tm, {"tokens": torch.zeros((2, 8), dtype=torch.long)}, 3)
     assert tuple(out.shape) == (2, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_init_draws_the_weights_it_drew_before(dtype):
+    """``Model.init`` copies each expert tensor into its stack as soon as
+    it is drawn (``moe.moe_draws``), so at most one draw is held; olmoe's
+    smoke weights from seed 0 are bit for bit those of the recipe that
+    drew a block's whole dict first: fp32 normal × scale, cast, in the
+    order embed, lm_head, then per layer the attention's wq, wk, wv, wo
+    and the router, w_in, w_gate, w_out."""
+    cfg = tconfigs.get_smoke(ARCH)
+    tm = TModel(cfg, dtype=dtype, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(0)
+
+    def draw(shape, scale, dt=dtype):
+        return (torch.randn(shape, generator=g, dtype=torch.float32)
+                * scale).to(dt)
+
+    d, V, E, f = cfg.d_model, cfg.vocab_size, cfg.n_experts, cfg.expert_d_ff
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    want = {"embed": draw((V, d), 0.02), "lm_head": draw((d, V), d ** -0.5)}
+    layers = {name: [] for name in ("wq", "wk", "wv", "wo", "router",
+                                    "w_in", "w_gate", "w_out")}
+    for _ in range(cfg.n_layers):
+        for name, shape, scale in (
+                ("wq", (d, H * hd), d ** -0.5), ("wk", (d, K * hd), d ** -0.5),
+                ("wv", (d, K * hd), d ** -0.5),
+                ("wo", (H * hd, d), (H * hd) ** -0.5)):
+            layers[name].append(draw(shape, scale))
+        layers["router"].append(draw((d, E), d ** -0.5, torch.float32))
+        layers["w_in"].append(draw((E, d, f), d ** -0.5))
+        layers["w_gate"].append(draw((E, d, f), d ** -0.5))
+        layers["w_out"].append(draw((E, f, d), f ** -0.5))
+    for name, stack in layers.items():
+        part = "attn" if name.startswith("w") and len(name) == 2 else "moe"
+        want[f"segments.0.0.{part}.{name}"] = torch.stack(stack)
+    got = dict(tm.named_parameters())
+    for name, w in want.items():
+        assert got[name].dtype == w.dtype and torch.equal(got[name], w), name
 
 
 def test_full_width_config_has_the_published_shape():

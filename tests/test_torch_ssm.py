@@ -430,7 +430,8 @@ def _greedy_serve_tokens_match_jax(tmp_path, P):
         want.append(tok)
     want = np.concatenate([np.asarray(w) for w in want], axis=1)
     with torch.inference_mode():
-        got = tserve.generate(tm, torch.from_numpy(prompts).long(), gen)
+        got = tserve.generate(
+            tm, {"tokens": torch.from_numpy(prompts).long()}, gen)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

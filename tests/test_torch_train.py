@@ -48,7 +48,8 @@ from repro_torch.runtime import LoopConfig, run_training
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-ARCHS = ["deepseek-7b", "mamba2-130m", "olmoe-1b-7b", "internvl2-2b"]
+ARCHS = ["deepseek-7b", "mamba2-130m", "olmoe-1b-7b", "internvl2-2b",
+         "deepseek-v3-671b", "whisper-large-v3"]
 
 
 def _np(x):
@@ -69,13 +70,17 @@ def _pair(cfg_j, cfg_t, dtype, tmp_path):
 
 
 def _batch(cfg, B, S, seed=0):
-    """numpy batch: tokens, and a vision prefix where the config has one."""
+    """numpy batch: tokens, and a vision prefix or audio frames where the
+    config has them."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)
                                     ).astype(np.int32)}
     if cfg.vision_embed_dim:
         batch["vision_embeds"] = rng.standard_normal(
             (B, cfg.vision_seq, cfg.vision_embed_dim)).astype(np.float32)
+    if cfg.encoder_layers:
+        batch["audio_embeds"] = rng.standard_normal(
+            (B, cfg.max_source_positions, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -229,7 +234,10 @@ def test_loss_and_grads_match_jax(arch, dtype, tmp_path):
     """Loss, metrics and every gradient against ``jax.value_and_grad`` of
     JAX's ``Model.loss`` (mesh None, attn_impl "xla"); the port with its
     defaults (remat on, the kernel path's plain version).  olmoe's smoke
-    capacity factor 16 drops nothing; internvl2 has a vision prefix.
+    capacity factor 16 drops nothing; internvl2 has a vision prefix;
+    deepseek-v3 runs MLA, MoE after a dense layer and the MTP head (its
+    ``mtp_ce`` a metric too); whisper an encoder over audio frames and
+    cross-attention.
 
     fp32: each gradient within 1e-4 of max|g|.  bf16: the two packages
     round to bf16 at other places, and their gradients differ by more than
@@ -247,9 +255,10 @@ def test_loss_and_grads_match_jax(arch, dtype, tmp_path):
         jm.loss, has_aux=True))(params, _jbatch(batch))
     loss, metrics, grads = _port_grads(tm, batch)
     assert loss.dtype == torch.float32 and loss.dim() == 0
-    assert set(metrics) == {"ce", "aux", "loss"}
+    names = {"ce", "aux", "loss"} | ({"mtp_ce"} if jm.cfg.mtp else set())
+    assert set(metrics) == set(jmetrics) | {"loss"} == names
     tol = GRAD_TOL[dtype]
-    for name in ("ce", "aux", "loss"):
+    for name in names:
         np.testing.assert_allclose(float(metrics[name].detach()),
                                    float(jmetrics[name]), rtol=tol,
                                    atol=1e-6)
@@ -295,11 +304,36 @@ def test_loss_and_grads_of_the_20m_example_match_jax(tmp_path):
     _assert_grads_close(grads, jckpt._flatten(jgrads), GRAD_TOL["float32"])
 
 
-def test_mtp_loss_names_its_roadmap_item():
-    cfg = dataclasses.replace(tconfigs.get_smoke("deepseek-7b"), mtp=True)
-    tm = TModel(cfg, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tm.loss({"tokens": torch.zeros((1, 8), dtype=torch.long)})
+@pytest.mark.parametrize("logits_fp32", [True, False])
+def test_mtp_head_is_fp32_and_weighted_as_jax(logits_fp32, tmp_path):
+    """In bf16 the MTP head's logits are fp32 whatever ``logits_fp32``
+    says (so its CE is the same both ways), and the loss is ce + router
+    weight × aux + 0.3 × mtp_ce; both metrics within bf16's 2e-2 of JAX's
+    under the same setting."""
+    cfg_j = jconfigs.get_smoke("deepseek-v3-671b")
+    jm = JModel(cfg_j, JRunConfig(remat=False, attn_impl="xla",
+                                  logits_fp32=logits_fp32),
+                dtype=jnp.bfloat16)
+    params = jm.init(jax.random.PRNGKey(3))
+    step_dir = jckpt.save(str(tmp_path), 0, params)
+    batch = _batch(cfg_j, 2, 16, seed=6)
+    _, jmetrics = jax.jit(jm.loss)(params, _jbatch(batch))
+    out = {}
+    for fp32 in (True, False):
+        tm = TModel(tconfigs.get_smoke("deepseek-v3-671b"),
+                    TRunConfig(logits_fp32=fp32), dtype=torch.bfloat16,
+                    device="cpu")
+        bridge.from_flat(bridge.load_npz(step_dir), tm)
+        with torch.no_grad():
+            out[fp32] = tm.loss(_tbatch(batch))
+    loss, metrics = out[logits_fp32]
+    assert float(out[True][1]["mtp_ce"]) == float(out[False][1]["mtp_ce"])
+    want = metrics["ce"] + tm.cfg.router_aux_weight * metrics["aux"] \
+        + 0.3 * metrics["mtp_ce"]
+    assert float(loss) == pytest.approx(float(want), rel=1e-6)
+    for name in ("ce", "mtp_ce", "loss"):
+        np.testing.assert_allclose(float(metrics[name]),
+                                   float(jmetrics[name]), rtol=2e-2)
 
 
 # ----------------------------------------------------------------------
@@ -343,7 +377,7 @@ def test_microbatches_two_match_one():
                         GRAD_TOL["float32"])
 
 
-def _run(tmp_path, name, fail_at_step):
+def _run(tmp_path, name, fail_at_step, ckpt_final=True, steps=6):
     run = TRunConfig()
     model, opt, _ = _smoke_state(run)
     cfg = model.cfg
@@ -351,8 +385,9 @@ def _run(tmp_path, name, fail_at_step):
                                   global_batch=2), "cpu")
     seen = []
     summary = run_training(
-        LoopConfig(total_steps=6, ckpt_dir=str(tmp_path / name),
-                   ckpt_every=2, fail_at_step=fail_at_step),
+        LoopConfig(total_steps=steps, ckpt_dir=str(tmp_path / name),
+                   ckpt_every=2, fail_at_step=fail_at_step,
+                   ckpt_final=ckpt_final),
         train_step=ttrain.make_train_step(model, opt, run),
         init_state=lambda: ttrain.init_train_state(
             model, opt, run, torch.Generator().manual_seed(0)),
@@ -373,6 +408,21 @@ def test_run_training_restart_replays_the_same_losses(tmp_path):
     for step, loss in failed_seen:
         np.testing.assert_allclose(loss, want[step], rtol=1e-6)
     assert failed["loss_history"][-1] == plain["loss_history"][-1]
+
+
+def test_run_training_can_skip_the_final_checkpoint(tmp_path):
+    """With ``ckpt_final=False`` and 5 steps every 2, the loop saves after
+    steps 1 and 3 and not after the last (4); the restart at 3 still
+    restores step 1's checkpoint and replays step 2 with its first-pass
+    loss."""
+    run, seen = _run(tmp_path, "skip", 3, ckpt_final=False, steps=5)
+    plain, _ = _run(tmp_path, "all", 3, steps=5)
+    assert len(run["save_seconds"]) == len(plain["save_seconds"]) - 1 == 2
+    assert ckpt.all_steps(str(tmp_path / "skip")) == [1, 3]
+    assert ckpt.all_steps(str(tmp_path / "all")) == [1, 3, 4]
+    assert run["restarts"] == 1 and run["restore_seconds"]
+    assert [s for s, _ in seen] == [0, 1, 2, 2, 3, 4]
+    assert seen[2][1] == seen[3][1]
 
 
 # 12 bf16 steps of the two packages from the same weights: the largest
