@@ -4,8 +4,10 @@
 The deepseek-7b architecture scaled to ~20M params, trained for 240 steps
 on the synthetic pipeline (bf16, remat, attention through the flash
 attention kernel K1 with its recompute backward), with checkpoint/restart
-fault tolerance: a simulated failure at step 120 restarts the loop from
-the checkpoint of step 119.
+fault tolerance (a simulated failure at step 120 restarts the loop from
+the checkpoint of step 119) and the gradient sync that the MXDAG plan of
+the full deepseek-7b on 256 H100s picks (one process: its collectives are
+the identity).
 
 Run:  python examples/train_lm_torch.py [--steps 240] [--device cpu]
 """
@@ -22,7 +24,7 @@ import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch import device as _device  # noqa: E402
-from repro_torch.configs.base import RunConfig  # noqa: E402
+from repro_torch.configs.base import SHAPES, RunConfig  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch.train import (  # noqa: E402
     init_train_state, make_train_step,
@@ -30,6 +32,7 @@ from repro_torch.launch.train import (  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig, cosine_schedule  # noqa: E402
 from repro_torch.runtime import LoopConfig, StepMonitor, run_training  # noqa: E402
+from repro_torch.sync.plan import plan_sync  # noqa: E402
 
 
 def main():
@@ -48,11 +51,17 @@ def main():
         d_ff=1024, vocab_size=4096)
     n = cfg.param_counts()["total"]
     print(f"arch: {cfg.name} ({n/1e6:.1f}M params) on {dev}")
-    print("MXDAG sync plan: arrives with multi-GPU sync (ROADMAP Queue 1 "
-          "item 5); one card has no gradient collective to order, so the "
-          "step runs in barrier mode")
 
-    run = RunConfig(sync_mode="barrier", remat=True, microbatches=1)
+    # the MXDAG plan for this arch at PRODUCTION scale (what the paper's
+    # scheduler decides for the real 256-GPU run)
+    plan = plan_sync(configs.get("deepseek-7b"), SHAPES["train_4k"])
+    print(f"MXDAG sync plan @256 H100s: mode={plan.mode}, "
+          f"predicted {plan.predicted_barrier:.3f}s -> "
+          f"{plan.predicted_bucketed:.3f}s "
+          f"({(plan.predicted_speedup-1)*100:.1f}% step-time win), "
+          f"order={plan.order[:4]}...")
+
+    run = RunConfig(sync_mode=plan.mode, remat=True, microbatches=1)
     model = Model(cfg, run, device=dev)
     opt = AdamW(AdamWConfig(
         lr=cosine_schedule(1e-3, warmup=20, total=args.steps),

@@ -1,24 +1,32 @@
 """Training step assembly and CLI driver: the port of the JAX package's
 ``repro.launch.train``.
 
-``make_train_step`` wires ``Model.loss`` → gradients → (optional fp8
-error-feedback compression) → ``AdamW.update`` into one function on the
-train state ``{"params": model, "opt": {...}[, "err": {...}]}``; with
-``RunConfig.microbatches`` k > 1 the batch is split in k and the
-gradients are summed in fp32.  ``RunConfig.opt_8bit`` is read where the
-optimizer is made (``AdamWConfig(state_8bit=...)``, as JAX's dry run
-pairs them), ``grad_compression`` here.  On the card attention runs K1
-and Mamba2 blocks K2 forward, MoE experts K3, each with the recompute
-backward of ``kernels.ops``.
+``make_train_step`` wires ``Model.loss`` → gradients → the gradient sync
+across data-parallel ranks → (optional fp8 error-feedback compression) →
+``AdamW.update`` into one function on the train state ``{"params": model,
+"opt": {...}[, "err": {...}]}``; with ``RunConfig.microbatches`` k > 1 the
+batch is split in k and the gradients are summed in fp32.
+``RunConfig.opt_8bit`` is read where the optimizer is made
+(``AdamWConfig(state_8bit=...)``, as JAX's dry run pairs them),
+``grad_compression`` here.  On the card attention runs K1 and Mamba2
+blocks K2 forward, MoE experts K3, each with the recompute backward of
+``kernels.ops``.
+
+``RunConfig.sync_mode`` picks how the gradients are averaged over the
+ranks (``sync.overlap``): ``bucketed`` (the CLI's default, as JAX's)
+reduces each layer's inside the backward as soon as that layer's backward
+is done, ``barrier`` all of them after it; ``sync.plan.plan_sync`` chooses
+between them from the step's MXDAG.  One process is a world of one.
 
     python -m repro_torch.launch.train --arch mamba2-130m --steps 200   # card
     python -m repro_torch.launch.train --device cpu --smoke --steps 3
+    torchrun --nproc_per_node=2 -m repro_torch.launch.train --device cpu --smoke
 
-``--sync-mode`` defaults to ``barrier``, where the JAX CLI's default is
-``bucketed``: on one card there is no gradient collective for an MXDAG
-plan to order, and the bucketed layer-wise sync waits for multi-GPU sync
-(ROADMAP Queue 1 item 5), so ``bucketed`` raises.  JAX's ``--mesh`` has no
-counterpart on one card.
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) each rank
+runs on ``cuda:<LOCAL_RANK>`` with NCCL, or on the CPU with gloo, and
+takes its ``B / world`` rows of every global batch; rank 0 prints and
+writes the checkpoints.  JAX's ``--mesh`` (GSPMD over a device mesh) has
+no counterpart: the port is data-parallel only.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch import device as _device
@@ -38,6 +47,7 @@ from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, AdamWConfig, compression, \
     cosine_schedule
+from repro_torch.sync import overlap
 
 
 CLI_LR, CLI_WARMUP, CLI_DECAY = 3e-3, 20, 0.1
@@ -89,11 +99,11 @@ class FullRun:
 # from run to run (``lr_probe``, PERF.md §6).  A run saves every
 # ``ckpt_every`` steps and not after its last step (``chip_smoke.py`` drills
 # a restart, not a resume): mamba2-130m after steps 9, 19 and 29,
-# internvl2-2b after 4 and 9 (22.7 GB each), olmoe-1b-7b after 20 only
-# (41.6 GB), and each restarts from the last save before its failure
+# internvl2-2b after 6 only (22.7 GB), olmoe-1b-7b after 20 only (41.6
+# GB), and each restarts from the last save before its failure
 FULL_RUNS = {r.arch: r for r in (
     FullRun("mamba2-130m", 8, 4096, 30, 10, 15),
-    FullRun("internvl2-2b", 4, 2048, 12, 5, 6, peak_lr=1e-3),
+    FullRun("internvl2-2b", 4, 2048, 12, 7, 8, peak_lr=1e-3),
     FullRun("olmoe-1b-7b", 4, 2048, 40, 21, 22, peak_lr=1e-4,
             opt_8bit=True, warmup=2))}
 
@@ -121,15 +131,29 @@ def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
     return 2.0 * n * shape.global_batch        # decode: one token
 
 
-def make_train_step(model: Model, optimizer: AdamW, run: RunConfig):
+def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
+                    group: Optional[dist.ProcessGroup] = None):
+    """``train_step(state, batch) -> (state, metrics)`` over the
+    data-parallel ranks of ``group`` (None: one process).  Each rank takes
+    its contiguous ``B / world`` rows of the global ``batch``; its
+    gradients are averaged over the ranks (``sync.overlap.GradSync``: in
+    bucketed mode each repeat's inside the backward, the rest after it; in
+    barrier mode all after it) before compression and the optimizer, and
+    the metrics are averaged too.  ``train_step.syncs`` holds the last
+    call's ``GradSync`` objects (one a microbatch), whose ``log`` shows
+    when each collective was issued."""
     names = [name for name, _ in model.named_parameters()]
+    rank, world = (0, 1) if group is None else (group.rank(), group.size())
 
     def grad_fn(params: Model, batch: dict):
-        loss, metrics = params.loss(batch)
+        sync = overlap.GradSync(group)
+        train_step.syncs.append(sync)
+        loss, metrics = params.loss(batch, sync)
         # a parameter the batch does not reach (internvl2's vis_proj on
         # text) gets a zero gradient, as under jax.grad
-        grads = torch.autograd.grad(loss, list(params.parameters()),
-                                    materialize_grads=True)
+        plist = list(params.parameters())
+        grads = torch.autograd.grad(loss, plist, materialize_grads=True)
+        grads = sync.finish(plist, grads)
         return dict(zip(names, grads)), {k: v.detach()
                                          for k, v in metrics.items()}
 
@@ -161,7 +185,15 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig):
         return grads, metrics
 
     def train_step(state: dict, batch: dict):
+        B = batch["tokens"].shape[0]
+        if B % world:
+            raise ValueError(f"batch {B} does not split over {world} "
+                             f"data-parallel ranks")
+        b = B // world
+        batch = {key: x[rank * b:(rank + 1) * b] for key, x in batch.items()}
+        train_step.syncs = []
         grads, metrics = compute_grads(state["params"], batch)
+        metrics = overlap.all_mean(metrics, group)
 
         new_state = dict(state)
         if run.grad_compression:
@@ -174,6 +206,7 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig):
                                             state["params"])
         return new_state, metrics
 
+    train_step.syncs = []
     return train_step
 
 
@@ -202,16 +235,33 @@ def main(argv: Optional[list[str]] = None) -> dict:
     p.add_argument("--ckpt-dir",
                    default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
     p.add_argument("--ckpt-every", type=int, default=50)
-    p.add_argument("--sync-mode", default="barrier",
-                   choices=["bucketed", "barrier"],
-                   help="barrier (default here; the JAX CLI defaults to "
-                        "bucketed): one card has no gradient collective to "
-                        "order, and bucketed sync waits for multi-GPU sync "
-                        "(ROADMAP Queue 1 item 5)")
+    p.add_argument("--sync-mode", default="bucketed",
+                   choices=["bucketed", "barrier"])
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
     dev = _device.resolve(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank, group = 0, None
+    if world > 1:
+        rank = int(os.environ["RANK"])
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(dev)
+            dist.init_process_group("nccl", rank=rank, world_size=world,
+                                    device_id=dev)
+        else:
+            dist.init_process_group("gloo", rank=rank, world_size=world)
+        group = dist.group.WORLD
+    try:
+        return _train(args, dev, rank, group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, dev: torch.device, rank: int,
+           group: Optional[dist.ProcessGroup]) -> dict:
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
     run = RunConfig(sync_mode=args.sync_mode, remat=True)
@@ -224,11 +274,12 @@ def main(argv: Optional[list[str]] = None) -> dict:
 
     from repro_torch.runtime import LoopConfig, StepMonitor, run_training
 
-    step_fn = make_train_step(model, opt, run)
+    step_fn = make_train_step(model, opt, run, group)
     monitor = StepMonitor()
+    world = 1 if group is None else group.size()
 
     def on_step(step, metrics):
-        if step % 10 == 0 or step == args.steps - 1:
+        if rank == 0 and (step % 10 == 0 or step == args.steps - 1):
             print(f"step {step:5d}  loss {float(metrics['loss']):.4f}")
 
     t0 = time.monotonic()
@@ -240,12 +291,15 @@ def main(argv: Optional[list[str]] = None) -> dict:
             model, opt, run, torch.Generator(dev).manual_seed(0)),
         batch_at=data.batch_at,
         monitor=monitor,
-        on_step=on_step)
+        on_step=on_step,
+        group=group)
     dt = time.monotonic() - t0
-    print(f"done: {summary['final_step'] + 1} steps in {dt:.1f}s on {dev}, "
-          f"restarts={summary['restarts']}, "
-          f"loss {summary['loss_history'][0]:.3f} -> "
-          f"{summary['loss_history'][-1]:.3f}")
+    if rank == 0:
+        print(f"done: {summary['final_step'] + 1} steps in {dt:.1f}s on "
+              f"{world} x {dev}, sync {run.sync_mode}, "
+              f"restarts={summary['restarts']}, "
+              f"loss {summary['loss_history'][0]:.3f} -> "
+              f"{summary['loss_history'][-1]:.3f}")
     return summary
 
 

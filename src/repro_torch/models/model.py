@@ -99,23 +99,39 @@ def derive_segments(cfg: ArchConfig, *, cross: bool = False,
 
 
 # RunConfig fields the port reads (``opt_8bit`` and ``grad_compression``
-# in ``launch.train``); the others wait for multi-GPU sync (ROADMAP Queue
-# 1 item 5)
+# in ``launch.train``).  The others (``fsdp``, ``batch_axes``,
+# ``moe_combine``, ``seq_shard``) steer the JAX package's GSPMD sharding of
+# one logical program over a mesh, which the port, one process a card
+# with data parallelism by ``torch.distributed``, has no counterpart of
 _READ = ("attn_impl", "ssm_chunk", "remat", "microbatches", "logits_fp32",
-         "opt_8bit", "grad_compression")
+         "opt_8bit", "grad_compression", "sync_mode")
+SYNC_MODES = ("barrier", "bucketed")
 
 
 def _check_run(run: RunConfig) -> None:
     """Any field the port does not read, set away from its default, raises
-    rather than be ignored without a word.  ``sync_mode`` stays
-    ``"barrier"``: on one card there is no gradient collective to order."""
-    unread = {f.name: "item 5, multi-GPU sync"
-              for f in dataclasses.fields(run)
-              if f.name not in _READ and getattr(run, f.name) != f.default}
+    rather than be ignored without a word."""
+    if run.sync_mode not in SYNC_MODES:
+        raise ValueError(f"sync_mode {run.sync_mode!r}: want one of "
+                         f"{SYNC_MODES}")
+    unread = [f.name for f in dataclasses.fields(run)
+              if f.name not in _READ and getattr(run, f.name) != f.default]
     if unread:
         raise NotImplementedError(
-            f"RunConfig fields are not implemented by the port yet "
-            f"(ROADMAP Queue 1): {unread}")
+            f"RunConfig fields {unread} steer the JAX package's GSPMD "
+            f"sharding, which the port does not have")
+
+
+def _leaves(tree: dict) -> list:
+    """The tensors of a nested dict, in order."""
+    return [t for v in tree.values()
+            for t in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _rebuild(tree: dict, leaves) -> dict:
+    """``tree`` with its tensors replaced, in order, from ``leaves``."""
+    return {k: _rebuild(v, leaves) if isinstance(v, dict) else next(leaves)
+            for k, v in tree.items()}
 
 
 # ----------------------------------------------------------------------
@@ -201,17 +217,21 @@ class _Block(nn.Module):
             rows(self.ln2).fill_(1.0)
             fill(self.moe, moe.moe_draws(generator, cfg, device=p.device))
 
+    def stacked(self) -> dict:
+        """The parameters, stacked, as the nested dict the layer functions
+        take (``attn`` → {``wq``, ...}, ``ln1``, ...)."""
+        out = {name: dict(child.items())
+               for name, child in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
+        return out
+
     def at(self, r: Optional[int]) -> dict:
         """Repeat r's parameters (an unstacked block's: r None) as the
         nested dict the layer functions take."""
-        def rows(t):
-            return t if r is None else t[r]
-        out = {}
-        for name, child in self.named_children():
-            out[name] = {k: rows(v) for k, v in child.items()}
-        for name, param in self.named_parameters(recurse=False):
-            out[name] = rows(param)
-        return out
+        tree = self.stacked()
+        if r is None:
+            return tree
+        return _rebuild(tree, (t[r] for t in _leaves(tree)))
 
 
 class _Mtp(nn.Module):
@@ -353,9 +373,16 @@ class Model(nn.Module):
         return x, aux
 
     def _run_repeat(self, si: int, r: int, x, *, positions=None,
-                    caches=None, cache_index=None, enc_out=None):
-        """Repeat r of segment si: each of its pattern's blocks in turn.
-        Returns (x, the MoE blocks' summed aux loss, or None)."""
+                    caches=None, cache_index=None, enc_out=None, sync=None):
+        """Repeat r of segment si: each of its pattern's blocks in turn,
+        on their parameters' rows r (under a ``GradSync``, through its
+        bucket, so their gradients are reduced when this repeat's backward
+        is done).  Returns (x, the MoE blocks' summed aux loss, or None)."""
+        trees = [block.stacked() for block in self.segments[si]]
+        stacks = [t for tree in trees for t in _leaves(tree)]
+        rows = iter(sync.bucket((si, r), stacks, r) if sync is not None
+                    else [t[r] for t in stacks])
+        bps = [_rebuild(tree, rows) for tree in trees]
         total_aux = None
         for j, spec in enumerate(self.segments_spec[si].pattern):
             cache = None
@@ -363,24 +390,34 @@ class Model(nn.Module):
                 cache = {name: {k: v[r] for k, v in c.items()}
                          for name, c in caches[si][j].items()}
             x, aux = self._apply_block(
-                self.segments[si][j].at(r), spec, x, positions=positions,
+                bps[j], spec, x, positions=positions,
                 cache=cache, cache_index=cache_index, enc_out=enc_out)
             if aux is not None:
                 total_aux = aux if total_aux is None else total_aux + aux
         return x, total_aux
 
     def _run_segments(self, x, *, positions=None, caches=None,
-                      cache_index=None, enc_out=None):
+                      cache_index=None, enc_out=None, sync=None):
         """Loop each segment over its repeats.  Returns (x, the MoE blocks'
         summed aux loss: a 0-d fp32 tensor, or 0.0 without MoE blocks).
         Caches are written in place.  With ``run.remat`` and autograd
         recording, each repeat runs under ``torch.utils.checkpoint``, as
         JAX's ``jax.checkpoint`` wraps the scan body: its activations are
-        recomputed in the backward."""
+        recomputed in the backward.
+
+        With ``run.sync_mode == "bucketed"``, a ``sync``
+        (``sync.overlap.GradSync``) and autograd recording, each repeat's
+        parameter gradients are reduced across the data-parallel ranks
+        inside the backward, as soon as that repeat's backward is done
+        (the JAX package's synced scan); otherwise ``sync.finish`` reduces
+        them after the backward."""
         remat = (self.run.remat and caches is None
                  and torch.is_grad_enabled())
+        if not (self.run.sync_mode == "bucketed" and caches is None
+                and torch.is_grad_enabled()):
+            sync = None
         kw = dict(positions=positions, caches=caches, cache_index=cache_index,
-                  enc_out=enc_out)
+                  enc_out=enc_out, sync=sync)
         total_aux = 0.0
         for si, seg in enumerate(self.segments_spec):
             for r in range(seg.repeats):
@@ -390,6 +427,8 @@ class Model(nn.Module):
                         **kw)
                 else:
                     x, aux = self._run_repeat(si, r, x, **kw)
+                if sync is not None:
+                    sync.mark(x, (si, r))
                 if aux is not None:
                     total_aux = total_aux + aux
         return x, total_aux
@@ -438,16 +477,19 @@ class Model(nn.Module):
         x, _ = self._run_segments(x, positions=positions, enc_out=enc_out)
         return self._head(x)
 
-    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss(self, batch: dict, sync=None) -> tuple[torch.Tensor, dict]:
         """Next-token CE over the text region (after any vision prefix),
         plus ``router_aux_weight`` × the MoE blocks' aux loss, plus 0.3 ×
         the MTP head's CE where the config has one.  Returns (loss, {"ce",
-        "aux", "loss"} and "mtp_ce" with MTP), 0-d fp32 tensors."""
+        "aux", "loss"} and "mtp_ce" with MTP), 0-d fp32 tensors.  ``sync``
+        (a ``sync.overlap.GradSync``) is the backward's gradient sync, which
+        ``_run_segments`` wires in bucketed mode."""
         cfg = self.cfg
         enc_out = self.encode(batch) if cfg.encoder_layers else None
         x, n_prefix = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, aux = self._run_segments(x, positions=positions, enc_out=enc_out)
+        x, aux = self._run_segments(x, positions=positions, enc_out=enc_out,
+                                    sync=sync)
         tokens = batch["tokens"]
         h = x[:, n_prefix:]                       # text region only
         logits = self._head(h[:, :-1])

@@ -1,7 +1,8 @@
 """Fault-tolerant training runtime."""
 from repro_torch.runtime.fault import (
-    LoopConfig, SimulatedFailure, StepMonitor, StragglerReport, run_training,
+    LoopConfig, SimulatedFailure, StepMonitor, StragglerReport,
+    recovery_drill, run_training,
 )
 
 __all__ = ["LoopConfig", "SimulatedFailure", "StepMonitor",
-           "StragglerReport", "run_training"]
+           "StragglerReport", "recovery_drill", "run_training"]

@@ -480,13 +480,22 @@ def test_bf16_steps_at_the_cli_lr_follow_jax_and_lower_the_held_out_loss(
     ("grad_compression", True, "item 4"),
 ])
 def test_check_run_still_refuses(field, value, item):
-    """Item 5's fields still raise, naming it; item 4's (the optimizer
-    extras) are ported: the model builds and the train state carries
-    them (int8 moments, the error accumulator)."""
+    """Item 5's ``sync_mode`` is ported: ``bucketed`` builds, an unknown
+    mode raises, and the GSPMD-only fields (``fsdp`` here) still raise,
+    naming themselves and not item 5; item 4's (the optimizer extras) are
+    ported: the model builds and the train state carries them (int8
+    moments, the error accumulator)."""
     run = dataclasses.replace(TRunConfig(), **{field: value})
     if item == "item 5":
-        with pytest.raises(NotImplementedError, match=item):
-            TModel(tconfigs.get_smoke("deepseek-7b"), run, device="cpu")
+        assert TModel(tconfigs.get_smoke("deepseek-7b"), run,
+                      device="cpu").run.sync_mode == value
+        with pytest.raises(ValueError, match="sync_mode"):
+            TModel(tconfigs.get_smoke("deepseek-7b"),
+                   TRunConfig(sync_mode="ring"), device="cpu")
+        with pytest.raises(NotImplementedError, match="fsdp") as err:
+            TModel(tconfigs.get_smoke("deepseek-7b"),
+                   dataclasses.replace(run, fsdp=True), device="cpu")
+        assert "item 5" not in str(err.value)
         return
     model = TModel(tconfigs.get_smoke("deepseek-7b"), run,
                    dtype=torch.float32, device="cpu")
@@ -614,7 +623,8 @@ def test_bf16_step_with_the_optimizer_extras_follows_jax(tmp_path):
 
 def test_train_cli_runs_on_cpu(tmp_path):
     """``python -m repro_torch.launch.train --device cpu --smoke --steps 3``
-    in a fresh interpreter (which imports no JAX)."""
+    in a fresh interpreter (which imports no JAX), in bucketed mode by
+    default."""
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
@@ -623,3 +633,4 @@ def test_train_cli_runs_on_cpu(tmp_path):
         env={**os.environ, "PYTHONPATH": str(root / "src")})
     assert proc.returncode == 0, proc.stderr
     assert "done: 3 steps" in proc.stdout and "restarts=0" in proc.stdout
+    assert "sync bucketed" in proc.stdout          # the default, as JAX's
