@@ -105,9 +105,10 @@ Phases (each raises on failure):
    checkpoint every 10, a failure injected at step 15; K2 forward (twice a
    layer a step: remat recomputes it) with the plain recompute backward;
 15. train internvl2-2b's language model at full width (bf16, remat, text
-   only, B 4 × S 2048): 12 steps, one checkpoint (after step 6), a
-   failure at step 8, with the CLI's AdamW at peak lr 1e-3;
-   K1 forward twice a layer a step;
+   only, B 4 × S 2048): 12 steps, no checkpoint (its 22.69 GB round
+   trip no longer fits the time budget; phases 14 and 16 drill it), a
+   failure at step 1 that restarts it from the initial state, with the
+   CLI's AdamW at peak lr 1e-3; K1 forward twice a layer a step;
 16. train olmoe-1b-7b at full width (bf16, remat, int8 AdamW moments, B 4
    × S 2048, so K3's capacity is 1280): 40 steps at peak lr 1e-4 after a
    2-step warm-up, one checkpoint (after step 20; none after the last),
@@ -117,7 +118,7 @@ Phases (each raises on failure):
    time, tokens/s, MFU, peak memory, the seconds of each checkpoint save
    and restore, launches a step, first and last loss and restarts, and
    checks one restart, a falling loss (with fp32 moments), finite losses,
-   that the steps replayed from the checkpoint give the first pass's
+   that the steps replayed after the restart give the first pass's
    losses, and that the loss on a held-out batch fell by more than
    REPLAY_TOL of itself.  The launches
    of the three runs count in the JSON line, beside the serving paths';
@@ -163,9 +164,19 @@ Phases (each raises on failure):
    1500 frames, prompt 128, 32 generated tokens; the encoder (K1
    non-causal, 32 launches) and the decoder prefill (K1, 32) inside TTFT,
    decode 0 launches, cross-attention recomputing its K/V each step, as
-   JAX does; the prefill logits by phase 4's rule against an fp32 copy.
+   JAX does; the prefill logits by phase 4's rule against an fp32 copy;
+24. the dry run's estimate, after every timed phase: the step of each of
+   phases 14-16 (its RunConfig, batch, optimizer and text-only tokens)
+   traced under ``FakeTensorMode`` on the CPU by
+   ``launch.dryrun.trace_step``, allocating nothing, all three at once
+   (one here, two as ``python3 chip_smoke.py --estimate ARCH OUT``, with
+   ``PYTHONPATH`` set to this script's ``src/``); each estimated peak
+   (``MemTracker``) within ESTIMATE_RANGE of the run's measured
+   ``max_memory_allocated``, and the traced flops printed beside
+   ``train.model_flops``.
 
-The last lines are the script's seconds, a ``{"kernels": [...]}`` JSON
+The last lines are the script's seconds (by phase, then in all), a
+``{"kernels": [...]}`` JSON
 line, the card's ``name, power.limit`` and ``{"ok": true, "device":
 {...}}``.  With no
 CUDA device, or without the port's package beside it, the script exits
@@ -177,6 +188,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import shutil
 import socket
 import statistics
@@ -193,7 +205,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+SRC = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC))
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
@@ -203,7 +216,7 @@ from repro_torch.kernels import nvcc, ops, ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models.model import SYNC_MODES  # noqa: E402
 from repro_torch.runtime import LoopConfig, StepMonitor  # noqa: E402
@@ -1671,8 +1684,10 @@ def host_room(model: Model, run: RunConfig, ckpt_dir: str,
     return msg
 
 
-def phase_train(arch: str) -> dict[str, int]:
-    """Full-width training through ``run_training`` with a restart."""
+def phase_train(arch: str) -> tuple[dict[str, int], int]:
+    """Full-width training through ``run_training`` with a restart.
+    Returns the run's launches and its peak memory
+    (``max_memory_allocated``, bytes)."""
     r = train.FULL_RUNS[arch]
     cfg = configs.get(arch)
     run = r.run_config()
@@ -1683,13 +1698,15 @@ def phase_train(arch: str) -> dict[str, int]:
     step_fn = train.make_train_step(model, opt, run)
     n_params = sum(p.numel() for p in model.parameters())
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpts = (f"a checkpoint every {r.ckpt_every} (none after the last step)"
+             if r.ckpt_every <= r.steps else
+             "no checkpoint (the failure restarts the initial state)")
     print(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {n_params / 1e6:.3f} M parameters, "
           f"bf16, remat; AdamW peak lr {r.peak_lr}, warmup "
           f"{r.warmup}, decay {train.CLI_DECAY}, "
           f"{'int8' if run.opt_8bit else 'fp32'} moments; B {r.batch} x S "
-          f"{r.seq}, {r.steps} steps, a "
-          f"checkpoint every {r.ckpt_every} (none after the last step), "
+          f"{r.seq}, {r.steps} steps, {ckpts}, "
           f"failure at step {r.fail_at_step}; built in "
           f"{time.perf_counter() - t0:.1f} s")
     saves = r.steps // r.ckpt_every
@@ -1786,7 +1803,7 @@ def phase_train(arch: str) -> dict[str, int]:
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"training {cfg.name} failed: {bad}")
-    return launches
+    return launches, peak
 
 
 # ----------------------------------------------------------------------
@@ -1795,6 +1812,13 @@ def phase_train(arch: str) -> dict[str, int]:
 SYNC_STEPS = 2
 # seconds each of phase 18's two processes may take, start to end
 SYNC_TIMEOUT = 300
+
+
+def src_env() -> dict:
+    """This process's environment with the port's ``src/`` beside this
+    script first on ``PYTHONPATH``, for the processes it starts."""
+    path = [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(path)}
 
 
 def free_port() -> int:
@@ -1985,7 +2009,8 @@ def phase_sync_gloo() -> dict[str, int]:
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--sync-rank",
              str(k), "--sync-init", init, "--sync-dir", out],
-            stdout=files[k], stderr=subprocess.STDOUT) for k in range(2)]
+            stdout=files[k], stderr=subprocess.STDOUT, env=src_env())
+            for k in range(2)]
         try:
             for p in procs:
                 p.wait(timeout=SYNC_TIMEOUT)
@@ -2072,45 +2097,125 @@ def phase_sync_gloo() -> dict[str, int]:
     return dict(launches)
 
 
+# ----------------------------------------------------------------------
+# the dry run's estimate against the card (phase 24)
+# ----------------------------------------------------------------------
+# the traced peak over the measured one must lie strictly inside this range
+ESTIMATE_RANGE = (0.75, 1.33)
+# seconds each of phase 24's trace processes may take, start to end
+ESTIMATE_TIMEOUT = 300
+
+
+def trace_run(arch: str) -> dict:
+    """``arch``'s full-width training step as its phase ran it (RunConfig,
+    batch, optimizer, text only), traced and measured on the CPU."""
+    r = train.FULL_RUNS[arch]
+    return dryrun.trace_step(configs.get(arch), r.run_config(),
+                             ShapeConfig("train", r.seq, r.batch, "train"),
+                             r.batch, optimizer=r.optimizer(),
+                             text_only=True)
+
+
+def phase_estimate(peaks: dict[str, int], card: str) -> None:
+    """Trace the step of each of phases 14-16 under ``FakeTensorMode`` on
+    the CPU (``trace_run``), all at once after every timed phase: the
+    first here, each other in a process of its own (``--estimate``; 27-28
+    s for the three where one after another here took 30-41 s); and hold
+    each estimated peak to the run's measured ``max_memory_allocated``."""
+    first, *rest = peaks
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_estimate_") as tmp:
+        procs = {arch: subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--estimate",
+             arch, str(Path(tmp) / f"{arch}.json")], env=src_env())
+            for arch in rest}
+        try:
+            ests = {first: trace_run(first)}
+            for arch, p in procs.items():
+                if p.wait(timeout=ESTIMATE_TIMEOUT) != 0:
+                    raise RuntimeError(f"phase 24: the trace of {arch} "
+                                       f"exited {p.returncode}")
+                ests[arch] = json.loads(
+                    (Path(tmp) / f"{arch}.json").read_text())
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    bad = []
+    for arch, measured in peaks.items():
+        r, est = train.FULL_RUNS[arch], ests[arch]
+        run, cfg = r.run_config(), configs.get(arch)
+        ratio = est["peak_bytes"] / measured
+        mf = train.model_flops(cfg, ShapeConfig("train", r.seq, r.batch,
+                                                "train"))
+        split = {k: round(v / 2**30, 3) for k, v in est["peak_split"].items()}
+        print(f"estimate {arch}: B {r.batch} x S {r.seq}, "
+              f"{'int8' if run.opt_8bit else 'fp32'} moments, remat "
+              f"{run.remat}, microbatches {run.microbatches}, sync "
+              f"{run.sync_mode}: estimated peak "
+              f"{est['peak_bytes'] / 2**30:.3f} GiB (MemTracker on fake "
+              f"tensors, GiB: {split}) against {measured / 2**30:.3f} GiB "
+              f"measured (max_memory_allocated, {card}): ratio {ratio:.4f} "
+              f"(must lie in {ESTIMATE_RANGE}); traced flops "
+              f"{est['flops']:.4e} against model_flops {mf:.4e} "
+              f"({est['flops'] / mf:.4f}x); traced in {est['trace_s']:.2f} s")
+        if not ESTIMATE_RANGE[0] < ratio < ESTIMATE_RANGE[1]:
+            bad.append(arch)
+    if bad:
+        raise AssertionError(f"phase 24: estimated peaks off for {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    card = phase_box()
-    k1 = phase_k1()
-    phase_small(SERVE_ARCH)
-    launches = Counter(phase_serve())       # each main path's launches
-    k2 = phase_k2()
-    phase_duality(DUALITY_PROMPT)
-    phase_duality(RAGGED_PROMPT)
-    launches.update(phase_serve_ssm())
-    k3 = phase_k3()
-    phase_small(MOE_ARCH)
-    moe_launches, run = phase_serve_moe()
+    seconds: dict[str, float] = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(seconds.get(name, 0.0)
+                              + time.perf_counter() - t0, 1)
+        return out
+
+    card = timed("1 box, builds", phase_box)
+    k1 = timed("2 K1", phase_k1)
+    timed("3-4 deepseek-7b", phase_small, SERVE_ARCH)
+    launches = Counter(timed("3-4 deepseek-7b", phase_serve))
+    k2 = timed("5 K2", phase_k2)
+    timed("6 duality", phase_duality, DUALITY_PROMPT)
+    timed("6 duality", phase_duality, RAGGED_PROMPT)
+    launches.update(timed("7 mamba2-130m", phase_serve_ssm))
+    k3 = timed("8 K3", phase_k3)
+    timed("9-11 olmoe-1b-7b", phase_small, MOE_ARCH)
+    moe_launches, run = timed("9-11 olmoe-1b-7b", phase_serve_moe)
     launches.update(moe_launches)
-    phase_moe_layer(run)
+    timed("9-11 olmoe-1b-7b", phase_moe_layer, run)
     del run
     torch.cuda.empty_cache()
-    phase_grads()
-    phase_small_train()
-    launches.update(phase_train(SSM_ARCH))
-    launches.update(phase_train(TRAIN_ARCH))
-    launches.update(phase_train(MOE_ARCH))
-    launches.update(phase_sync_nccl())
-    launches.update(phase_sync_gloo())
-    phase_mla_block()
-    phase_small(MLA_ARCH)
-    launches.update(phase_serve_mla())
+    timed("12 gradients", phase_grads)
+    timed("13 small steps", phase_small_train)
+    peaks = {}
+    for n, arch in ((14, SSM_ARCH), (15, TRAIN_ARCH), (16, MOE_ARCH)):
+        got, peaks[arch] = timed(f"{n} train {arch}", phase_train, arch)
+        launches.update(got)
+    launches.update(timed("17-18 sync", phase_sync_nccl))
+    launches.update(timed("17-18 sync", phase_sync_gloo))
+    timed("19-21 deepseek-v3", phase_mla_block)
+    timed("19-21 deepseek-v3", phase_small, MLA_ARCH)
+    launches.update(timed("19-21 deepseek-v3", phase_serve_mla))
     torch.cuda.empty_cache()
-    phase_small(ENC_ARCH)
-    launches.update(phase_serve_whisper())
+    timed("22-23 whisper", phase_small, ENC_ARCH)
+    launches.update(timed("22-23 whisper", phase_serve_whisper))
+    timed("24 estimate", phase_estimate, peaks, card)
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
+    print(f"chip_smoke: seconds by phase {seconds}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in order}
@@ -2130,5 +2235,8 @@ if __name__ == "__main__":
         p.add_argument("--sync-dir", required=True)
         a = p.parse_args()
         sync_worker(a.sync_rank, a.sync_init, a.sync_dir)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--estimate"]:
+        Path(sys.argv[3]).write_text(json.dumps(trace_run(sys.argv[2])))
         sys.exit(0)
     sys.exit(main())

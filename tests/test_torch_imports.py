@@ -55,7 +55,8 @@ def test_port_modules_import_without_jax_or_repro():
                 "repro_torch.launch.lr_probe", "repro_torch.runtime",
                 "repro_torch.runtime.fault", "repro_torch.core",
                 "repro_torch.core.nemesis", "repro_torch.sync.plan",
-                "repro_torch.sync.overlap", "repro_torch.launch.roofline"):
+                "repro_torch.sync.overlap", "repro_torch.launch.roofline",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun"):
         assert mod in out["mods"]
 
 

@@ -11,13 +11,15 @@ the CPU.
 - ``runtime.fault``: ``StepMonitor``'s attribution and ``recovery_drill``
   give JAX's results; ``run_training`` on two ranks restarts both from
   rank 0's checkpoint.
-- MoE under data parallelism: the load-balancing loss of each rank's
-  tokens is not the global batch's, so an MoE step on two ranks is not
-  the one-process step (measured below).
+- MoE under data parallelism: each rank routes its own tokens (its
+  capacity and load-balancing loss), as JAX's step on a (2,1) data × model
+  mesh routes each data shard, and the two steps agree; the mesh-less
+  one-process step, which routes the whole batch, differs by the aux loss
+  (measured below).
 
 JAX's bucketed path needs a mesh whose axes are Auto (jax 0.9.0 types
 ``jax.make_mesh``'s axes Explicit, which the JAX model's sharding
-constraints refuse), so the test builds its 1×1 mesh so.
+constraints refuse), so the tests build their 1×1 and 2×1 meshes so.
 """
 import dataclasses
 import json
@@ -422,15 +424,66 @@ def test_two_gloo_ranks_equal_each_other_and_jax_full_batch(arch, tmp_path):
             "step_00000001", "step_00000003", "step_00000004"]
 
 
+_MESH_GRADS = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import dataclasses, json, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro import configs
+from repro.checkpoint import ckpt
+from repro.configs.base import RunConfig
+from repro.models import Model
+
+a = json.loads(sys.argv[1])
+cfg = dataclasses.replace(configs.get_smoke(a["arch"]), **a["replace"])
+mesh = jax.make_mesh((2, 1), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+jm = Model(cfg, RunConfig(remat=False, attn_impl="xla"), mesh=mesh,
+           dtype=jnp.float32)
+params = ckpt.restore(os.path.dirname(a["params"]), 0,
+                      jax.eval_shape(jm.init, jax.random.PRNGKey(0)))
+tokens = jnp.asarray(np.load(a["tokens"]))
+with mesh:
+    grads = jax.jit(jax.grad(
+        lambda p: jm.loss(p, {"tokens": tokens})[0]))(params)
+np.savez(a["out"], **ckpt._flatten(grads))
+"""
+
+
+def _jax_mesh_grads(tmp_path, arch, tokens, step_dir, replace=None):
+    """JAX's data-parallel gradients: its step on a (2,1) data × model mesh
+    of two host devices with Auto axes, in a subprocess (the device count
+    is fixed when jax starts).  Each data shard takes half the batch."""
+    np.save(tmp_path / "mesh_tokens.npy", tokens)
+    out = tmp_path / "mesh_grads.npz"
+    arg = json.dumps({"arch": arch, "replace": replace or {},
+                      "params": step_dir,
+                      "tokens": str(tmp_path / "mesh_tokens.npy"),
+                      "out": str(out)})
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", _MESH_GRADS, arg], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return dict(np.load(out))
+
+
 def test_moe_two_ranks_part_from_the_global_batch_by_the_aux_loss(
         tmp_path):
     """olmoe's smoke config (capacity factor 16: nothing dropped on either
-    side) on two ranks: the ranks agree and bucketed equals barrier, but
-    each rank's Switch load-balancing loss is over its own tokens (the
-    product of two per-expert means), where JAX's GSPMD step takes it over
-    the global batch: the step parts from JAX's whole-batch gradients.
-    With the aux weight at 0 it is JAX's to 1e-4 of max|g|.  The gap is
-    recorded in ROADMAP.md Queue 3."""
+    side) on two ranks: the ranks agree and bucketed equals barrier; each
+    rank routes its own tokens, so its capacity and its Switch
+    load-balancing loss (the product of two per-expert means) are over
+    its half of the batch, and the ranks' aux losses are averaged.  That
+    is JAX's data-parallel step: on a mesh JAX's ``moe_apply`` routes each
+    data shard inside ``shard_map`` and averages the shards' aux losses
+    (``src/repro/models/moe.py:133-175``), and the port's step equals
+    JAX's on a (2,1) data × model mesh to 1e-4 of max|g|.  Only JAX's
+    mesh-less step routes the whole batch at once: the two-rank step parts
+    from that one by the aux loss, and with the aux weight at 0 equals it
+    to 1e-4 of max|g|."""
     gaps = {}
     for weight in (None, 0.0):
         replace = {} if weight is None else {"router_aux_weight": weight}
@@ -458,10 +511,18 @@ def test_moe_two_ranks_part_from_the_global_batch_by_the_aux_loss(
             for k, w in jgrads.items() if np.abs(w).max() > 0}
         if weight == 0.0:
             _close(grads["bucketed"], jgrads)
+        else:
+            # JAX's data-parallel step: each data shard routes its own
+            mesh = _jax_mesh_grads(sub, "olmoe-1b-7b", tokens, step_dir,
+                                   replace)
+            for mode in ("barrier", "bucketed"):
+                _close({k: v for k, v in grads[mode].items()
+                        if k != ".loss"}, mesh)
     # measured (this config and batch, fp32, the CPU): at the config's aux
-    # weight 0.01 the router's gradient parts from JAX's by 1.185e-02 of
-    # its max|g|, ln2's by 1.062e-02, attention's wo by 7.33e-03 (the aux
-    # loss's gradient reaches every parameter at or below the router); at
+    # weight 0.01 the router's gradient parts from the mesh-less step's by
+    # 1.185e-02 of its max|g|, ln2's by 1.062e-02, attention's wo by
+    # 7.33e-03 (the aux loss's gradient reaches every parameter at or below
+    # the router), where it is within 1.19e-06 of the (2,1)-mesh step's; at
     # weight 0, by at most 1.8e-06
     router = "segments/0/0/moe/router"
     assert gaps[None][router] == pytest.approx(1.185e-2, rel=0.1), gaps
