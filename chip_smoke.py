@@ -40,12 +40,13 @@ Phases (each raises on failure):
    state, against the same call on CPU copies (its plain route) and
    against the sequential recurrence on the card; and K2's time beside
    the plain version and its bound;
-6. SSD duality at full width (mamba2-130m, 2 × 512 tokens, and 2 × 300: a
-   chunk and a remainder of 44, two K2 launches a layer): the one-call
-   prefill through K2 against token-by-token decode on the sequential
-   recurrence, in fp32 (logits and the final caches) and in bf16 (each
-   side's logits against the fp32 model on the same weights, and the two
-   sides against each other);
+6. SSD duality at full width (mamba2-130m, 2 × 512 tokens, and their first
+   300: a chunk and a remainder of 44, two K2 launches a layer): the
+   one-call prefill through K2 against token-by-token decode on the
+   sequential recurrence (one pass over the 512, read after 300 and 512),
+   in fp32 (logits and the final caches) and in bf16 (each side's logits
+   against the fp32 model on the same weights, and the two sides against
+   each other);
 7. serve mamba2-130m at full width (bf16, random weights from seed 0):
    8 requests, prompt 4096, 32 generated tokens; the prompt prefills in
    one call through K2 (24 launches, one per layer), decode runs the
@@ -105,10 +106,9 @@ Phases (each raises on failure):
    checkpoint every 10, a failure injected at step 15; K2 forward (twice a
    layer a step: remat recomputes it) with the plain recompute backward;
 15. train internvl2-2b's language model at full width (bf16, remat, text
-   only, B 4 × S 2048): 12 steps, no checkpoint (its 22.69 GB round
-   trip no longer fits the time budget; phases 14 and 16 drill it), a
-   failure at step 1 that restarts it from the initial state, with the
-   CLI's AdamW at peak lr 1e-3; K1 forward twice a layer a step;
+   only, B 4 × S 2048): 12 steps, one checkpoint (after step 6), a
+   failure at step 8, with the CLI's AdamW at peak lr 1e-3;
+   K1 forward twice a layer a step;
 16. train olmoe-1b-7b at full width (bf16, remat, int8 AdamW moments, B 4
    × S 2048, so K3's capacity is 1280): 40 steps at peak lr 1e-4 after a
    2-step warm-up, one checkpoint (after step 20; none after the last),
@@ -118,7 +118,7 @@ Phases (each raises on failure):
    time, tokens/s, MFU, peak memory, the seconds of each checkpoint save
    and restore, launches a step, first and last loss and restarts, and
    checks one restart, a falling loss (with fp32 moments), finite losses,
-   that the steps replayed after the restart give the first pass's
+   that the steps replayed from the checkpoint give the first pass's
    losses, and that the loss on a held-out batch fell by more than
    REPLAY_TOL of itself.  The launches
    of the three runs count in the JSON line, beside the serving paths';
@@ -168,11 +168,9 @@ Phases (each raises on failure):
 24. the dry run's estimate, after every timed phase: the step of each of
    phases 14-16 (its RunConfig, batch, optimizer and text-only tokens)
    traced under ``FakeTensorMode`` on the CPU by
-   ``launch.dryrun.trace_step``, allocating nothing, all three at once
-   (one here, two as ``python3 chip_smoke.py --estimate ARCH OUT``, with
-   ``PYTHONPATH`` set to this script's ``src/``); each estimated peak
-   (``MemTracker``) within ESTIMATE_RANGE of the run's measured
-   ``max_memory_allocated``, and the traced flops printed beside
+   ``launch.dryrun.trace_step``, allocating nothing, one after another;
+   each estimated peak (``MemTracker``) within ESTIMATE_RANGE of the run's
+   measured ``max_memory_allocated``, and the traced flops printed beside
    ``train.model_flops``.
 
 The last lines are the script's seconds (by phase, then in all), a
@@ -269,10 +267,10 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # sequential recurrence) in fp32: chunked vs sequential,
 # tests/test_kernels.py:113, elementwise atol = rtol
 DUALITY_TOL = 1e-3
-DUALITY_BATCH, DUALITY_PROMPT = 2, 512
-# a prompt that is no multiple of the chunk: 256 + 44, prefilled as the
-# whole chunk and the remainder, two K2 launches a layer
-RAGGED_PROMPT = 300
+# two whole chunks, then a prompt that is no multiple of the chunk: 256 +
+# 44, prefilled as the whole chunk and the remainder, two K2 launches a
+# layer; the second is the first's first 300 tokens
+DUALITY_BATCH, DUALITY_PROMPTS = 2, (512, 300)
 # In bf16 the two sides of the duality carry bf16 rounding compounded over
 # 24 random layers (each ~0.214 relative norm from the fp32 model on the
 # same bf16-valued weights), so each is judged against that model, as
@@ -994,68 +992,85 @@ def phase_k2() -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def phase_duality(S: int) -> None:
+def phase_duality() -> None:
     """State-space duality at full width: the one-call prefill (the chunked
     scan through K2) against token-by-token decode (the sequential
-    recurrence), over the same prompts of S tokens, in fp32 (logits and
-    final caches) and in bf16 (logits, each against the fp32 model and each
-    other).  The one-call prefill must launch K2 once a layer for the whole
-    chunks and once more for a remainder."""
+    recurrence), over the first S tokens of the same prompts for each S of
+    DUALITY_PROMPTS, in fp32 (logits and final caches) and in bf16 (logits,
+    each against the fp32 model and each other).  One token-by-token pass
+    over the longest prompt serves every S: decode is causal, so its logits
+    and caches after S tokens are those of a pass over S tokens alone.  The
+    one-call prefill must launch K2 once a layer for the whole chunks and
+    once more for a remainder."""
     cfg = configs.get(SSM_ARCH)
-    B = DUALITY_BATCH
-    want_launches = cfg.n_layers * ((S >= cfg.ssm_chunk)
-                                    + (S % cfg.ssm_chunk > 0))
-    model, requests = serve.setup(cfg, B, S, "cuda", seed=1)
+    B, longest = DUALITY_BATCH, max(DUALITY_PROMPTS)
+    model, requests = serve.setup(cfg, B, longest, "cuda", seed=1)
     tokens = requests["tokens"]
+    names = ("state", "conv")
     bad = []
 
-    def both_ways(m: Model):
+    def both_ways(m: Model) -> dict:
+        """{S: (one-call logits, its final caches, token-by-token logits,
+        theirs)}, logits in fp32."""
+        dtype = str(m.dtype)[6:]
         with torch.inference_mode():
-            ops.ssd_chunked.launches = 0
-            one_call, chunked = m.decode_step(m.init_cache(B, S), tokens, 0)
-            launches = ops.ssd_chunked.launches
-            seq = m.init_cache(B, S)
+            seq, by_token, after = m.init_cache(B, longest), [], {}
             t0 = time.perf_counter()
-            by_token = torch.cat([m.decode_step(seq, tokens[:, t:t + 1],
-                                                t)[0] for t in range(S)],
-                                 dim=1)
+            for t in range(longest):
+                by_token.append(m.decode_step(seq, tokens[:, t:t + 1], t)[0])
+                if t + 1 in DUALITY_PROMPTS:
+                    after[t + 1] = {n: seq[0][0]["ssm"][n].clone()
+                                    for n in names}
             torch.cuda.synchronize()
-        print(f"duality {cfg.name} {str(m.dtype)[6:]} B{B} S{S}: K2 "
-              f"launches in the one-call prefill {launches} (want "
-              f"{want_launches}); {S} token-by-token steps at "
-              f"{1e3 * (time.perf_counter() - t0) / S:.3f} ms each")
-        if launches != want_launches:
-            bad.append(f"{str(m.dtype)[6:]} launches")
-        return one_call.float(), chunked, by_token.float(), seq
+            step_ms = 1e3 * (time.perf_counter() - t0) / longest
+            by_token = torch.cat(by_token, dim=1).float()
+            out = {}
+            for S in DUALITY_PROMPTS:
+                want = cfg.n_layers * ((S >= cfg.ssm_chunk)
+                                       + (S % cfg.ssm_chunk > 0))
+                ops.ssd_chunked.launches = 0
+                one_call, chunked = m.decode_step(m.init_cache(B, S),
+                                                  tokens[:, :S], 0)
+                launches = ops.ssd_chunked.launches
+                print(f"duality {cfg.name} {dtype} B{B} S{S}: K2 launches "
+                      f"in the one-call prefill {launches} (want {want}); "
+                      f"{longest} token-by-token steps at {step_ms:.3f} ms "
+                      f"each, read after {S}")
+                if launches != want:
+                    bad.append(f"{dtype} S{S} launches")
+                out[S] = (one_call.float(),
+                          {n: chunked[0][0]["ssm"][n] for n in names},
+                          by_token[:, :S], after[S])
+        return out
 
-    one_call, chunked, by_token, seq = both_ways(fp32_copy(model))
-    checks = [("logits", one_call, by_token)] + [
-        (f"{name} (all layers)", chunked[0][0]["ssm"][name],
-         seq[0][0]["ssm"][name]) for name in ("state", "conv")]
-    for name, got, want in checks:
-        err, worst = compare(got, want, DUALITY_TOL)
-        print(f"duality {cfg.name} fp32 B{B} S{S}, {name}: max|d| "
-              f"{err:.3e}, relative norm {rel_err(got, want):.3e}, max|want| "
-              f"{want.abs().max().item():.3e}, worst |d| / (tol + tol "
-              f"|want|) {worst:.3f} (tol {DUALITY_TOL:.0e}) "
-              f"{'ok' if worst <= 1.0 else 'FAIL'}")
-        if not worst <= 1.0:
-            bad.append(name)
-    del chunked, seq, by_token
+    fp32 = both_ways(fp32_copy(model))
+    for S, (one_call, chunked, by_token, seq) in fp32.items():
+        checks = [("logits", one_call, by_token)] + [
+            (f"{n} (all layers)", chunked[n], seq[n]) for n in names]
+        for name, got, want in checks:
+            err, worst = compare(got, want, DUALITY_TOL)
+            print(f"duality {cfg.name} fp32 B{B} S{S}, {name}: max|d| "
+                  f"{err:.3e}, relative norm {rel_err(got, want):.3e}, "
+                  f"max|want| {want.abs().max().item():.3e}, worst |d| / "
+                  f"(tol + tol |want|) {worst:.3f} (tol {DUALITY_TOL:.0e}) "
+                  f"{'ok' if worst <= 1.0 else 'FAIL'}")
+            if not worst <= 1.0:
+                bad.append(f"S{S} {name}")
 
-    kern, _, plain, _ = both_ways(model)
-    rel_k, rel_p, rel_kp = (rel_err(kern, one_call), rel_err(plain, one_call),
-                            rel_err(kern, plain))
-    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    print(f"duality {cfg.name} bf16 B{B} S{S}, logits at every position, "
-          f"relative error to the fp32 model: one-call through K2 "
-          f"{rel_k:.4e} (limit {KERNEL_VS_PLAIN_ERR} x token-by-token), "
-          f"token-by-token {rel_p:.4e}; one-call vs token-by-token "
-          f"{rel_kp:.4e} (limit {BF16_DUALITY_AGREE}), argmax agreement "
-          f"{agree:.4f}")
-    if not (rel_k <= KERNEL_VS_PLAIN_ERR * rel_p
-            and rel_kp <= BF16_DUALITY_AGREE):
-        bad.append("bf16 logits")
+    for S, (kern, _, plain, _) in both_ways(model).items():
+        one_call = fp32[S][0]
+        rel_k, rel_p, rel_kp = (rel_err(kern, one_call),
+                                rel_err(plain, one_call), rel_err(kern, plain))
+        agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+        print(f"duality {cfg.name} bf16 B{B} S{S}, logits at every position, "
+              f"relative error to the fp32 model: one-call through K2 "
+              f"{rel_k:.4e} (limit {KERNEL_VS_PLAIN_ERR} x token-by-token), "
+              f"token-by-token {rel_p:.4e}; one-call vs token-by-token "
+              f"{rel_kp:.4e} (limit {BF16_DUALITY_AGREE}), argmax agreement "
+              f"{agree:.4f}")
+        if not (rel_k <= KERNEL_VS_PLAIN_ERR * rel_p
+                and rel_kp <= BF16_DUALITY_AGREE):
+            bad.append(f"S{S} bf16 logits")
     if bad:
         raise AssertionError(f"one-call prefill and token-by-token decode "
                              f"disagree: {bad}")
@@ -1698,15 +1713,13 @@ def phase_train(arch: str) -> tuple[dict[str, int], int]:
     step_fn = train.make_train_step(model, opt, run)
     n_params = sum(p.numel() for p in model.parameters())
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    ckpts = (f"a checkpoint every {r.ckpt_every} (none after the last step)"
-             if r.ckpt_every <= r.steps else
-             "no checkpoint (the failure restarts the initial state)")
     print(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, {n_params / 1e6:.3f} M parameters, "
           f"bf16, remat; AdamW peak lr {r.peak_lr}, warmup "
           f"{r.warmup}, decay {train.CLI_DECAY}, "
           f"{'int8' if run.opt_8bit else 'fp32'} moments; B {r.batch} x S "
-          f"{r.seq}, {r.steps} steps, {ckpts}, "
+          f"{r.seq}, {r.steps} steps, a "
+          f"checkpoint every {r.ckpt_every} (none after the last step), "
           f"failure at step {r.fail_at_step}; built in "
           f"{time.perf_counter() - t0:.1f} s")
     saves = r.steps // r.ckpt_every
@@ -2102,8 +2115,6 @@ def phase_sync_gloo() -> dict[str, int]:
 # ----------------------------------------------------------------------
 # the traced peak over the measured one must lie strictly inside this range
 ESTIMATE_RANGE = (0.75, 1.33)
-# seconds each of phase 24's trace processes may take, start to end
-ESTIMATE_TIMEOUT = 300
 
 
 def trace_run(arch: str) -> dict:
@@ -2118,32 +2129,12 @@ def trace_run(arch: str) -> dict:
 
 def phase_estimate(peaks: dict[str, int], card: str) -> None:
     """Trace the step of each of phases 14-16 under ``FakeTensorMode`` on
-    the CPU (``trace_run``), all at once after every timed phase: the
-    first here, each other in a process of its own (``--estimate``; 27-28
-    s for the three where one after another here took 30-41 s); and hold
-    each estimated peak to the run's measured ``max_memory_allocated``."""
-    first, *rest = peaks
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_estimate_") as tmp:
-        procs = {arch: subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--estimate",
-             arch, str(Path(tmp) / f"{arch}.json")], env=src_env())
-            for arch in rest}
-        try:
-            ests = {first: trace_run(first)}
-            for arch, p in procs.items():
-                if p.wait(timeout=ESTIMATE_TIMEOUT) != 0:
-                    raise RuntimeError(f"phase 24: the trace of {arch} "
-                                       f"exited {p.returncode}")
-                ests[arch] = json.loads(
-                    (Path(tmp) / f"{arch}.json").read_text())
-        finally:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+    the CPU (``trace_run``), one after another after every timed phase,
+    and hold each estimated peak to the run's measured
+    ``max_memory_allocated``."""
     bad = []
     for arch, measured in peaks.items():
-        r, est = train.FULL_RUNS[arch], ests[arch]
+        r, est = train.FULL_RUNS[arch], trace_run(arch)
         run, cfg = r.run_config(), configs.get(arch)
         ratio = est["peak_bytes"] / measured
         mf = train.model_flops(cfg, ShapeConfig("train", r.seq, r.batch,
@@ -2184,8 +2175,7 @@ def main() -> int:
     timed("3-4 deepseek-7b", phase_small, SERVE_ARCH)
     launches = Counter(timed("3-4 deepseek-7b", phase_serve))
     k2 = timed("5 K2", phase_k2)
-    timed("6 duality", phase_duality, DUALITY_PROMPT)
-    timed("6 duality", phase_duality, RAGGED_PROMPT)
+    timed("6 duality", phase_duality)
     launches.update(timed("7 mamba2-130m", phase_serve_ssm))
     k3 = timed("8 K3", phase_k3)
     timed("9-11 olmoe-1b-7b", phase_small, MOE_ARCH)
@@ -2235,8 +2225,5 @@ if __name__ == "__main__":
         p.add_argument("--sync-dir", required=True)
         a = p.parse_args()
         sync_worker(a.sync_rank, a.sync_init, a.sync_dir)
-        sys.exit(0)
-    if sys.argv[1:2] == ["--estimate"]:
-        Path(sys.argv[3]).write_text(json.dumps(trace_run(sys.argv[2])))
         sys.exit(0)
     sys.exit(main())

@@ -15,7 +15,8 @@ For each cell this
      bytes (``_bytes_mode``: every operator's inputs and outputs, an upper
      bound on the traffic, as XLA's "bytes accessed" is) and the peak memory
      (``MemTracker``, split into parameters, gradients, optimizer state,
-     activations and temporaries), and adds the bytes a ``GradSync`` would
+     activations and temporaries as they stand at the peak), and adds the
+     bytes a ``GradSync`` would
      all-reduce per rank (train only: the gradients × 2(W−1)/W);
   4. fills a ``launch.roofline.Roofline`` on the ``H100`` and says whether
      the peak fits the card's 80 GB.
@@ -72,7 +73,10 @@ BYTES_NOTE = ("an upper bound: each operator's inputs and outputs, views "
 PEAK_NOTE = ("MemTracker on fake tensors: what PyTorch's allocator would "
              "hold at once, without the CUDA context, the allocator's "
              "rounding and fragmentation, or the GradSync buckets of world "
-             "> 1 (the trace is one rank without a process group)")
+             "> 1 (the trace is one rank without a process group); the "
+             "split is the peak's own: a train step peaks early in its "
+             "backward, where the gradients made so far (the head's) are "
+             "all its gradients holds")
 # MemTracker's categories, as the record names them
 _SPLIT = {"Parameter": "parameters", "Gradient": "gradients",
           "Other": "optimizer", "Activation": "activations",

@@ -20,21 +20,18 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeConfig,
-                batch: Optional[int] = None, device=None) -> dict:
+                batch: Optional[int] = None) -> dict:
     """The batch of a train or prefill cell: ``tokens`` [B, seq_len], and
     ``audio_embeds`` [B, frames, d_model] or ``vision_embeds`` [B,
     vision_seq, vision_embed_dim] where the config has them."""
     B = shape.global_batch if batch is None else batch
-    out = {"tokens": torch.zeros((B, shape.seq_len), dtype=torch.int64,
-                                 device=device)}
+    out = {"tokens": torch.zeros((B, shape.seq_len), dtype=torch.int64)}
     if cfg.encoder_layers:
         out["audio_embeds"] = torch.zeros(
-            (B, cfg.max_source_positions, cfg.d_model), dtype=torch.bfloat16,
-            device=device)
+            (B, cfg.max_source_positions, cfg.d_model), dtype=torch.bfloat16)
     if cfg.vision_embed_dim:
         out["vision_embeds"] = torch.zeros(
-            (B, cfg.vision_seq, cfg.vision_embed_dim), dtype=torch.bfloat16,
-            device=device)
+            (B, cfg.vision_seq, cfg.vision_embed_dim), dtype=torch.bfloat16)
     return out
 
 

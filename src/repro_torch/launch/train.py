@@ -98,14 +98,12 @@ class FullRun:
 # loss by 4.4-7.1e-3 of itself in 40 steps, where 24 steps gave 0.7-2.8e-3
 # from run to run (``lr_probe``, PERF.md §6).  A run saves every
 # ``ckpt_every`` steps and not after its last step (``chip_smoke.py`` drills
-# a restart, not a resume): mamba2-130m after steps 9, 19 and 29 and
-# olmoe-1b-7b after 20 only (41.6 GB), each restarting from the last save
-# before its failure; internvl2-2b saves none (its 22.7 GB round trip
-# took 64-79 s of ``chip_smoke.py``'s time budget): its failure at step 1
-# restarts it from the initial state, and step 0 is replayed
+# a restart, not a resume): mamba2-130m after steps 9, 19 and 29,
+# internvl2-2b after 6 only (22.7 GB), olmoe-1b-7b after 20 only (41.6
+# GB), and each restarts from the last save before its failure
 FULL_RUNS = {r.arch: r for r in (
     FullRun("mamba2-130m", 8, 4096, 30, 10, 15),
-    FullRun("internvl2-2b", 4, 2048, 12, 13, 1, peak_lr=1e-3),
+    FullRun("internvl2-2b", 4, 2048, 12, 7, 8, peak_lr=1e-3),
     FullRun("olmoe-1b-7b", 4, 2048, 40, 21, 22, peak_lr=1e-4,
             opt_8bit=True, warmup=2))}
 

@@ -279,3 +279,20 @@ def test_text_only_traces_the_tokens_alone():
         shape, B)
     full = dryrun.trace_step(cfg, run, shape, B)
     assert text["flops"] == bare["flops"] < full["flops"]
+
+
+def test_peak_split_counts_the_gradients_made_by_the_peak():
+    """``torch.autograd.grad``'s outputs are filed as gradients, not as
+    temporaries: ``MemTracker``'s hook on each parameter labels its
+    gradient when the backward makes it.  A train step peaks early in its
+    backward, so the split's gradients are those of the head and final
+    norm alone (olmoe-1b-7b's head is untied)."""
+    cfg = _smoke("olmoe-1b-7b")
+    got = dryrun.trace_step(cfg, RunConfig(remat=True),
+                            ShapeConfig("tiny_train", S, B, "train"), B)
+    params = dict(Model(cfg, dtype=torch.bfloat16,
+                        device="meta").named_parameters())
+    head = sum(params[n].numel() * params[n].element_size()
+               for n in ("lm_head", "final_norm"))
+    assert got["peak_split"]["gradients"] == head == 65_664
+    assert sum(got["peak_split"].values()) == got["peak_bytes"]
