@@ -126,12 +126,17 @@ Phases (each raises on failure):
    process (``launch.train.make_train_step`` over a process group): train
    internvl2-2b's language model at full width (bf16, remat, B 4 × S 2048,
    K1 twice a layer a step) 2 steps in barrier mode, then 2 in bucketed
-   mode, from the same initial state and batches; the gradients of the
-   two modes agree to 1e-4 of max|g| per tensor; each bucketed step issues
-   one collective a repeat (24), each after its repeat's backward starts
-   and before the next lower repeat's does, and one more after the
-   backward for the rest (``GradSync.log``); barrier one, after; both
-   modes' step times;
+   mode, then 2 bucketed with the parameters sharded over the one rank
+   (``RunConfig.fsdp``: NCCL's ``all_gather_into_tensor`` and
+   ``reduce_scatter_tensor`` on the card), from the same initial state
+   and batches; the gradients of the two modes agree to 1e-4 of max|g|
+   per tensor, and the sharded run's equal bucketed's bit for bit; each
+   bucketed step issues one collective a repeat (24), each after its
+   repeat's backward starts and before the next lower repeat's does, and
+   one more after the backward for the rest (``GradSync.log``; sharded:
+   the gathers in the forward and the recompute, and each repeat's
+   reduce-scatter inside its backward); barrier one, after; each run's
+   step times;
 18. the same across two gloo ranks, two processes on this one card
    (``python3 chip_smoke.py --sync-rank R ...``, each with its own
    timeout): mamba2-130m at full width, global B 8 × S 4096 (4 rows a
@@ -139,6 +144,12 @@ Phases (each raises on failure):
    both ranks hold bitwise-equal gradients, bucketed equals barrier to
    1e-4 of max|g|, each repeat issues one collective a parameter dtype
    (bf16, and fp32 for ``A_log``, ``D``, ``dt_bias``) inside the backward;
+   then 2 bucketed steps with the parameters sharded over the two ranks
+   (``RunConfig.fsdp``): the gathered gradients within 1e-4 of max|g| of
+   the replicated bucketed run's (bit for bit expected, and printed), the
+   bytes resident after ``init_train_state`` (``memory_allocated``) equal
+   to the shard arithmetic, one reduce-scatter a repeat (``in_proj`` and
+   ``out_proj``) inside the backward, and each run's peak printed;
    the first step's gradients of both modes against the single-process B
    8 step's, run here: within 2e-2 of max|g| per tensor, and by ROADMAP
    Queue 3 difference 7's rule (each against an fp32 model on the same
@@ -171,7 +182,9 @@ Phases (each raises on failure):
    ``launch.dryrun.trace_step``, allocating nothing, one after another;
    each estimated peak (``MemTracker``) within ESTIMATE_RANGE of the run's
    measured ``max_memory_allocated``, and the traced flops printed beside
-   ``train.model_flops``.
+   ``train.model_flops``; then one rank's sharded step of phase 18
+   (mamba2-130m, world 2, 4 rows, ``fsdp``) held so to rank 0's measured
+   peak.
 
 The last lines are the script's seconds (by phase, then in all), a
 ``{"kernels": [...]}`` JSON
@@ -184,6 +197,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -217,6 +231,8 @@ from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models.model import SYNC_MODES  # noqa: E402
+from repro_torch.checkpoint import bridge  # noqa: E402
+from repro_torch.sync import shard  # noqa: E402
 from repro_torch.runtime import LoopConfig, StepMonitor  # noqa: E402
 from repro_torch.runtime import run_training  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -1517,8 +1533,11 @@ class _KeepGrads:
         return self.opt.init(params)
 
     def update(self, grads, state, params):
-        self.grads = {k: g.detach().clone() if self.on_card
-                      else g.detach().float().cpu() for k, g in grads.items()}
+        # a sharded model's gradients are gathered whole (every rank calls)
+        whole = {k: bridge.whole(params, k, g.detach())
+                 for k, g in grads.items()}
+        self.grads = {k: g.clone() if self.on_card else g.float().cpu()
+                      for k, g in whole.items()}
         return self.opt.update(grads, state, params)
 
 
@@ -1825,6 +1844,11 @@ def phase_train(arch: str) -> tuple[dict[str, int], int]:
 SYNC_STEPS = 2
 # seconds each of phase 18's two processes may take, start to end
 SYNC_TIMEOUT = 300
+# the configurations phases 17 and 18 run, in order: the two sync modes,
+# then the parameters sharded over the ranks (RunConfig.fsdp), bucketed
+SYNC_CONFIGS = {"barrier": dict(sync_mode="barrier"),
+                "bucketed": dict(sync_mode="bucketed"),
+                "fsdp": dict(sync_mode="bucketed", fsdp=True)}
 
 
 def src_env() -> dict:
@@ -1857,12 +1881,84 @@ def expected_sync_log(model: Model, mode: str) -> list:
     return log + [("end",)] + [("after",)] * len(rest)
 
 
-def timed_sync_steps(model: Model, opt, run: RunConfig, data, group):
-    """SYNC_STEPS steps of ``make_train_step`` over ``group`` from seed 0's
-    state: (host seconds a step, gradients a step, the sync logs a
-    step)."""
+def fsdp_sync_log(model: Model) -> list:
+    """The ``GradSync.log`` of one bucketed backward under fsdp with remat,
+    cut into runs that each start at a repeat's backward (and at the
+    end), each run's entries sorted: the forward gathers every repeat's
+    sharded rows (and the head's, if sharded); the head's reduce-scatter
+    comes before the top repeat's backward; each repeat's run holds its
+    recompute's gather, one reduce-scatter a dtype of its sharded rows
+    and one all-reduce a dtype of its replicated rows; after the backward,
+    one all-reduce a dtype of what no repeat covers."""
+    shards = model.shards
+    head = "lm_head" in shards
+    keys = [(si, r) for si, seg in enumerate(model.segments_spec)
+            for r in range(seg.repeats)]
+    log = [("gather", k) for k in keys] + [("gather", ("head",))] * head
+    log += [("scatter", ("head",))] * head
+    for si, r in reversed(keys):
+        named = [(n, p) for j, b in enumerate(model.segments[si])
+                 for n, p in b.named_parameters(
+                     prefix=f"segments.{si}.{j}")]
+        n_sh = len({p.dtype for n, p in named if n in shards})
+        n_rep = len({p.dtype for n, p in named if n not in shards})
+        log += ([("backward", (si, r)), ("gather", (si, r))]
+                + [("scatter", (si, r))] * n_sh + [("issue", (si, r))] * n_rep)
+    rest = {p.dtype for n, p in model.named_parameters()
+            if not n.startswith("segments.") and n not in shards}
+    return runs(log + [("end",)] + [("after",)] * len(rest))
+
+
+def runs(log: list) -> list:
+    """``log`` cut before each repeat's backward and the end, each piece
+    sorted (the order of collectives inside one repeat's backward is the
+    engine's)."""
+    out, cur = [], []
+    for e in map(tuple, log):
+        e = tuple(tuple(x) if isinstance(x, list) else x for x in e)
+        if e[0] in ("backward", "end") and cur:
+            out.append(sorted(cur, key=repr))
+            cur = []
+        cur.append(e)
+    return out + [sorted(cur, key=repr)]
+
+
+def resident_want(cfg, run: RunConfig, world: int) -> int:
+    """The bytes a rank's parameters and fp32 moments take under ``run``
+    at ``world`` ranks, from the whole shapes and the shard rule
+    (``sync.shard.local_shape``), each tensor rounded up to the
+    allocator's 512-byte blocks."""
+    def block(n: int) -> int:
+        return -(-n // 512) * 512
+    whole = Model(cfg, dataclasses.replace(run, fsdp=False),
+                  dtype=torch.bfloat16, device="meta")
+    total = 0
+    for name, p in whole.named_parameters():
+        shape = (shard.local_shape(name.split("."), p.shape, world)
+                 if run.fsdp else tuple(p.shape))
+        n = math.prod(shape)
+        total += block(n * p.element_size()) + 2 * block(n * 4)
+    return total
+
+
+def sync_config(cfg, r, name: str, data, group) -> tuple[dict, list]:
+    """SYNC_STEPS steps of ``make_train_step`` in configuration ``name``
+    of SYNC_CONFIGS from seed 0's state: (the record: step seconds, logs,
+    the log's check, the bytes resident after ``init_train_state`` beside
+    what the shard arithmetic gives, and the peak, both over what was
+    allocated before the model; the gradients a step)."""
+    run = dataclasses.replace(r.run_config(), **SYNC_CONFIGS[name])
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, run, dtype=torch.bfloat16, device="cuda",
+                  group=group)
+    opt = _KeepGrads(r.optimizer(), on_card=True)
     state = train.init_train_state(
         model, opt, run, torch.Generator(device="cuda").manual_seed(0))
+    resident = torch.cuda.memory_allocated() - base
     step = train.make_train_step(model, opt, run, group)
     times, grads, logs = [], [], []
     for s in range(SYNC_STEPS):
@@ -1874,21 +1970,48 @@ def timed_sync_steps(model: Model, opt, run: RunConfig, data, group):
         times.append(time.perf_counter() - t0)
         grads.append(opt.grads)
         logs.append([sync.log for sync in step.syncs])
-    return times, grads, logs
+    if run.fsdp:
+        want = fsdp_sync_log(model)
+        log_ok = all(len(lg) == 1 and runs(lg[0]) == want for lg in logs)
+    else:
+        want = expected_sync_log(model, run.sync_mode)
+        log_ok = all(lg == [want] for lg in logs)
+    world = 1 if group is None else group.size()
+    rec = {"times": times, "logs": logs, "log_ok": log_ok,
+           "resident": resident,
+           "resident_want": resident_want(cfg, run, world),
+           "peak": torch.cuda.max_memory_allocated() - base,
+           "free_before": free,
+           "seconds": round(time.perf_counter() - t_start, 1)}
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return rec, grads
 
 
-def modes_worst(grads: dict) -> list[float]:
-    """Per step, the worst tensor of bucketed against barrier:
-    |d| / (STEP_TOL max|barrier| + STEP_TOL |barrier|)."""
-    return [max(worst_scaled(grads["bucketed"][s][k], want, STEP_TOL)
-                for k, want in grads["barrier"][s].items())
+def modes_worst(grads: dict, got: str = "bucketed",
+                want: str = "barrier") -> list[float]:
+    """Per step, the worst tensor of configuration ``got`` against
+    ``want``: |d| / (STEP_TOL max|want| + STEP_TOL |want|)."""
+    return [max(worst_scaled(grads[got][s][k], w, STEP_TOL)
+                for k, w in grads[want][s].items())
             for s in range(SYNC_STEPS)]
+
+
+def bitwise(grads: dict, got: str, want: str) -> bool:
+    """Are configuration ``got``'s gradients ``want``'s, bit for bit, in
+    every step?"""
+    return all(torch.equal(grads[got][s][k], w)
+               for s in range(SYNC_STEPS)
+               for k, w in grads[want][s].items())
 
 
 def phase_sync_nccl() -> dict[str, int]:
     """internvl2-2b at full width over NCCL at world size 1, in this
     process: SYNC_STEPS steps in barrier mode, then as many in bucketed
-    mode, from the same initial state and batches."""
+    mode, then as many bucketed with the parameters sharded over the one
+    rank (``RunConfig.fsdp``: NCCL's ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` on the card), from the same initial state
+    and batches."""
     r = train.FULL_RUNS[TRAIN_ARCH]
     cfg = configs.get(TRAIN_ARCH)
     data = SyntheticLM(DataConfig(cfg.vocab_size, r.seq, r.batch), "cuda")
@@ -1896,41 +2019,46 @@ def phase_sync_nccl() -> dict[str, int]:
         "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
         world_size=1, device_id=torch.device("cuda", 0),
         timeout=timedelta(seconds=SYNC_TIMEOUT))
-    out, want_logs, launches = {}, {}, Counter()
+    out, grads, launches = {}, {}, Counter()
     try:
-        for mode in SYNC_MODES:
-            run = dataclasses.replace(r.run_config(), sync_mode=mode)
-            model = Model(cfg, run, dtype=torch.bfloat16, device="cuda")
-            want_logs[mode] = expected_sync_log(model, mode)
+        for name in SYNC_CONFIGS:
             zero_counts()
-            out[mode] = timed_sync_steps(
-                model, _KeepGrads(r.optimizer(), on_card=True), run, data,
-                dist.group.WORLD)
+            out[name], grads[name] = sync_config(cfg, r, name, data,
+                                                 dist.group.WORLD)
             launches.update(counts())
-            del model
-            torch.cuda.empty_cache()
     finally:
+        torch.cuda.synchronize()
         dist.destroy_process_group()
-    worst = modes_worst({m: out[m][1] for m in SYNC_MODES})
-    logs_ok = all(logs == [want_logs[m]] for m in SYNC_MODES
-                  for logs in out[m][2])
+    worst = modes_worst(grads)
+    fsdp_same = bitwise(grads, "fsdp", "bucketed")
+    logs_ok = all(rec["log_ok"] for rec in out.values())
     L = cfg.n_layers
-    want = {"K1": 2 * L * SYNC_STEPS * 2, "K2": 0, "K3": 0}
-    for mode in SYNC_MODES:
-        log = out[mode][2][0][0]
+    want = {"K1": 2 * L * SYNC_STEPS * len(SYNC_CONFIGS), "K2": 0, "K3": 0}
+    for name, rec in out.items():
+        log = rec["logs"][0][0]
         print(f"sync nccl {cfg.name} B {r.batch} x S {r.seq}, world 1, "
-              f"{mode}: steps {[round(1e3 * t, 3) for t in out[mode][0]]} "
+              f"{name}: steps {[round(1e3 * t, 3) for t in rec['times']]} "
               f"ms; collectives a step: "
-              f"{sum(e[0] == 'issue' for e in log)} inside the backward, "
-              f"{sum(e[0] == 'after' for e in log)} after it")
+              f"{sum(e[0] in ('issue', 'scatter') for e in log)} inside the "
+              f"backward ({sum(e[0] == 'scatter' for e in log)} "
+              f"reduce-scatters), {sum(e[0] == 'after' for e in log)} after "
+              f"it, {sum(e[0] == 'gather' for e in log)} gathers; "
+              f"{rec['seconds']} s with the model's build and init")
     print(f"sync nccl {cfg.name}: bucketed against barrier, worst |d| / "
           f"(tol max|g| + tol |g|), tol {STEP_TOL:.0e}, per step: "
-          f"{[round(w, 4) for w in worst]}; logs as expected (each "
-          f"repeat's collective between its backward's start and the next "
-          f"lower repeat's): {logs_ok}; launches {dict(launches)} (want "
-          f"{want})")
-    if not (max(worst) <= 1.0 and logs_ok and dict(launches) == want):
+          f"{[round(w, 4) for w in worst]}; fsdp's gradients bitwise "
+          f"bucketed's: {fsdp_same}; logs as expected (each repeat's "
+          f"collectives between its backward's start and the next lower "
+          f"repeat's): {logs_ok}; launches {dict(launches)} (want {want})")
+    if not (max(worst) <= 1.0 and fsdp_same and logs_ok
+            and dict(launches) == want):
         raise AssertionError(f"phase 17 (NCCL, {cfg.name}) failed")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sync nccl: this process holds {torch.cuda.memory_reserved()} B "
+          f"of the card after phase 17 "
+          f"({torch.cuda.memory_allocated()} B allocated)")
     return dict(launches)
 
 
@@ -1948,9 +2076,12 @@ def ranks_equal(grads: dict, group) -> bool:
 def sync_worker(rank: int, init: str, out: str) -> None:
     """One of phase 18's two gloo ranks, on the one card:
     ``python3 chip_smoke.py --sync-rank R --sync-init URL --sync-dir
-    DIR``.  Writes ``rank<R>.json`` (step times, logs, launches, whether
-    its gradients are rank 0's bit for bit, bucketed against barrier) and,
-    rank 0, ``grads.pt``: the first step's gradients of each mode."""
+    DIR``.  Runs each configuration of SYNC_CONFIGS in turn (the last
+    with the parameters sharded over the two ranks) and writes
+    ``rank<R>.json`` (each one's record: step times, logs, resident bytes
+    and peak; launches; whether its gradients are rank 0's bit for bit;
+    bucketed against barrier and fsdp against bucketed) and, rank 0,
+    ``grads.pt``: the first step's gradients of each sync mode."""
     r = train.FULL_RUNS[SSM_ARCH]
     cfg = configs.get(SSM_ARCH)
     data = SyntheticLM(DataConfig(cfg.vocab_size, r.seq, r.batch), "cuda")
@@ -1959,22 +2090,21 @@ def sync_worker(rank: int, init: str, out: str) -> None:
                             timeout=timedelta(seconds=SYNC_TIMEOUT))
     try:
         group = dist.group.WORLD
-        res = {"times": {}, "logs": {}, "rank_equal": [], "want_logs": {}}
+        res = {"configs": {}, "rank_equal": []}
         grads = {}
         zero_counts()
-        for mode in SYNC_MODES:
-            run = dataclasses.replace(r.run_config(), sync_mode=mode)
-            model = Model(cfg, run, dtype=torch.bfloat16, device="cuda")
-            res["want_logs"][mode] = expected_sync_log(model, mode)
-            res["times"][mode], grads[mode], res["logs"][mode] = \
-                timed_sync_steps(model, _KeepGrads(r.optimizer(),
-                                                   on_card=True),
-                                 run, data, group)
+        for name in SYNC_CONFIGS:
+            print(f"rank {rank} {name}: {torch.cuda.memory_allocated()} B "
+                  f"allocated, {torch.cuda.memory_reserved()} reserved, "
+                  f"{torch.cuda.mem_get_info()[0]} free", flush=True)
+            res["configs"][name], grads[name] = sync_config(
+                cfg, r, name, data, group)
             res["rank_equal"] += [ranks_equal(g, group)
-                                  for g in grads[mode]]
-            del model
+                                  for g in grads[name]]
         res["launches"] = counts()
         res["modes_worst"] = modes_worst(grads)
+        res["fsdp_worst"] = modes_worst(grads, "fsdp", "bucketed")
+        res["fsdp_bitwise"] = bitwise(grads, "fsdp", "bucketed")
         if rank == 0:
             torch.save({m: {k: g.float().cpu() for k, g in grads[m][0].items()}
                         for m in SYNC_MODES}, f"{out}/grads.pt")
@@ -1991,14 +2121,18 @@ def rel_vec(got: dict, want: dict) -> float:
     return math.sqrt(num / den)
 
 
-def phase_sync_gloo() -> dict[str, int]:
+def phase_sync_gloo() -> tuple[dict[str, int], int]:
     """mamba2-130m at full width on two gloo ranks, two processes on this
     one card (global B 8 × S 4096, 4 rows a rank): SYNC_STEPS steps in
-    each mode; against the single-process B 8 step run here, on the rule
+    each mode, then bucketed with the parameters sharded over the ranks;
+    the modes against the single-process B 8 step run here, on the rule
     of ROADMAP Queue 3 difference 7 (each bf16 side against an fp32 model
-    on the same weights)."""
+    on the same weights), the sharded run against the replicated bucketed
+    one.  Returns the launches and rank 0's sharded peak (over what was
+    allocated before its model)."""
     r = train.FULL_RUNS[SSM_ARCH]
     cfg = configs.get(SSM_ARCH)
+    t0 = time.perf_counter()
     data = SyntheticLM(DataConfig(cfg.vocab_size, r.seq, r.batch), "cuda")
     run = r.run_config()
     model = Model(cfg, run, dtype=torch.bfloat16, device="cuda")
@@ -2016,6 +2150,11 @@ def phase_sync_gloo() -> dict[str, int]:
     del model, opt, state, m32, opt32
     torch.cuda.empty_cache()
 
+    print(f"sync gloo: the one-process B 8 steps took "
+          f"{time.perf_counter() - t0:.1f} s; this process holds "
+          f"{torch.cuda.memory_reserved()} B of the card before the ranks "
+          f"start; {torch.cuda.mem_get_info()[0]} B free")
+    t0 = time.perf_counter()
     init = f"tcp://127.0.0.1:{free_port()}"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sync_") as out:
         files = [open(f"{out}/rank{k}.log", "w") for k in range(2)]
@@ -2045,29 +2184,53 @@ def phase_sync_gloo() -> dict[str, int]:
             raise AssertionError(f"phase 18: a rank failed or hung: {codes}")
         res = [json.loads(Path(f"{out}/rank{k}.json").read_text())
                for k in range(2)]
+        print(f"sync gloo: the two ranks took {time.perf_counter() - t0:.1f} "
+              f"s, start to end")
         two = torch.load(f"{out}/grads.pt")
 
     bad = []
     L = cfg.n_layers
-    want_launches = {"K1": 0, "K2": 2 * L * SYNC_STEPS * 2, "K3": 0}
+    want_launches = {"K1": 0, "K2": 2 * L * SYNC_STEPS * len(SYNC_CONFIGS),
+                     "K3": 0}
     for k, rk in enumerate(res):
-        logs_ok = all(logs == [rk["want_logs"][m]] for m in SYNC_MODES
-                      for logs in rk["logs"][m])
-        log = rk["logs"]["bucketed"][0][0]
+        recs = rk["configs"]
+        logs_ok = all(rec["log_ok"] for rec in recs.values())
+        log = recs["bucketed"]["logs"][0][0]
+        flog = recs["fsdp"]["logs"][0][0]
         print(f"sync gloo {cfg.name} rank {k} of 2 (two processes sharing "
               f"one card; not a speed), 4 rows x S {r.seq}: step ms "
-              + ", ".join(f"{m} {[round(1e3 * t, 3) for t in rk['times'][m]]}"
-                          for m in SYNC_MODES)
+              + ", ".join(f"{m} {[round(1e3 * t, 3) for t in rec['times']]}"
+                          for m, rec in recs.items())
               + f"; bucketed collectives a step: "
               f"{sum(e[0] == 'issue' for e in log)} inside the backward, "
-              f"{sum(e[0] == 'after' for e in log)} after; logs as "
-              f"expected: {logs_ok}; gradients bitwise rank 0's (barrier, "
-              f"bucketed a step): {rk['rank_equal']}; bucketed against "
-              f"barrier worst (tol {STEP_TOL:.0e}) "
+              f"{sum(e[0] == 'after' for e in log)} after; fsdp: "
+              f"{sum(e[0] == 'gather' for e in flog)} gathers, "
+              f"{sum(e[0] == 'scatter' for e in flog)} reduce-scatters and "
+              f"{sum(e[0] == 'issue' for e in flog)} all-reduces inside the "
+              f"backward, {sum(e[0] == 'after' for e in flog)} after; logs "
+              f"as expected: {logs_ok}; gradients bitwise rank 0's "
+              f"(barrier, bucketed, fsdp a step): {rk['rank_equal']}; "
+              f"bucketed against barrier worst (tol {STEP_TOL:.0e}) "
               f"{[round(w, 4) for w in rk['modes_worst']]}; launches "
               f"{rk['launches']} (want {want_launches})")
+        fs = recs["fsdp"]
+        print(f"sync gloo {cfg.name} rank {k} fsdp: gathered gradients "
+              f"against replicated bucketed, worst (tol {STEP_TOL:.0e}) "
+              f"{[round(w, 4) for w in rk['fsdp_worst']]}, bitwise "
+              f"{rk['fsdp_bitwise']}; resident after init_train_state "
+              f"(parameters and fp32 moments) {fs['resident']} B, the "
+              f"shard arithmetic {fs['resident_want']} B (replicated "
+              f"{recs['bucketed']['resident']} B, arithmetic "
+              f"{recs['bucketed']['resident_want']} B); peak over what "
+              f"was allocated before the model: "
+              + ", ".join(f"{m} {rec['peak'] / 2**30:.3f} GiB"
+                          for m, rec in recs.items())
+              + "; seconds a configuration with its build and init: "
+              + ", ".join(f"{m} {rec['seconds']}" for m, rec in recs.items()))
         if not (logs_ok and all(rk["rank_equal"])
                 and max(rk["modes_worst"]) <= 1.0
+                and max(rk["fsdp_worst"]) <= 1.0
+                and fs["resident"] == fs["resident_want"]
                 and rk["launches"] == want_launches):
             bad.append(f"rank {k}")
     single_err = rel_vec(single, ref)
@@ -2107,7 +2270,7 @@ def phase_sync_gloo() -> dict[str, int]:
     launches = Counter()
     for rk in res:
         launches.update(rk["launches"])
-    return dict(launches)
+    return dict(launches), res[0]["configs"]["fsdp"]["peak"]
 
 
 # ----------------------------------------------------------------------
@@ -2117,30 +2280,42 @@ def phase_sync_gloo() -> dict[str, int]:
 ESTIMATE_RANGE = (0.75, 1.33)
 
 
-def trace_run(arch: str) -> dict:
+def trace_run(arch: str, world: int = 1, **run_fields) -> dict:
     """``arch``'s full-width training step as its phase ran it (RunConfig,
-    batch, optimizer, text only), traced and measured on the CPU."""
+    batch, optimizer, text only), traced and measured on the CPU; with
+    ``world`` > 1, one rank's (B / world rows) of ``run_fields``' step,
+    as phase 18 ran it."""
     r = train.FULL_RUNS[arch]
-    return dryrun.trace_step(configs.get(arch), r.run_config(),
-                             ShapeConfig("train", r.seq, r.batch, "train"),
-                             r.batch, optimizer=r.optimizer(),
+    run = dataclasses.replace(r.run_config(), **run_fields)
+    rows = r.batch // world
+    return dryrun.trace_step(configs.get(arch), run,
+                             ShapeConfig("train", r.seq, rows, "train"),
+                             rows, world=world, optimizer=r.optimizer(),
                              text_only=True)
 
 
-def phase_estimate(peaks: dict[str, int], card: str) -> None:
+def phase_estimate(peaks: dict[str, int], fsdp_peak: int, card: str) -> None:
     """Trace the step of each of phases 14-16 under ``FakeTensorMode`` on
     the CPU (``trace_run``), one after another after every timed phase,
     and hold each estimated peak to the run's measured
-    ``max_memory_allocated``."""
+    ``max_memory_allocated``; then one rank's sharded step of phase 18
+    (mamba2-130m, world 2, 4 rows, ``fsdp``) against rank 0's measured
+    peak over what was allocated before its model."""
     bad = []
-    for arch, measured in peaks.items():
-        r, est = train.FULL_RUNS[arch], trace_run(arch)
-        run, cfg = r.run_config(), configs.get(arch)
+    runs_ = [(arch, 1, {}, measured) for arch, measured in peaks.items()]
+    runs_.append((SSM_ARCH, 2, SYNC_CONFIGS["fsdp"], fsdp_peak))
+    for arch, world, fields, measured in runs_:
+        r, est = train.FULL_RUNS[arch], trace_run(arch, world, **fields)
+        run = dataclasses.replace(r.run_config(), **fields)
+        cfg = configs.get(arch)
         ratio = est["peak_bytes"] / measured
-        mf = train.model_flops(cfg, ShapeConfig("train", r.seq, r.batch,
+        rows = r.batch // world
+        mf = train.model_flops(cfg, ShapeConfig("train", r.seq, rows,
                                                 "train"))
         split = {k: round(v / 2**30, 3) for k, v in est["peak_split"].items()}
-        print(f"estimate {arch}: B {r.batch} x S {r.seq}, "
+        label = (arch if world == 1 else
+                 f"{arch} fsdp rank 0 of {world} (phase 18)")
+        print(f"estimate {label}: B {rows} x S {r.seq}, "
               f"{'int8' if run.opt_8bit else 'fp32'} moments, remat "
               f"{run.remat}, microbatches {run.microbatches}, sync "
               f"{run.sync_mode}: estimated peak "
@@ -2149,9 +2324,11 @@ def phase_estimate(peaks: dict[str, int], card: str) -> None:
               f"measured (max_memory_allocated, {card}): ratio {ratio:.4f} "
               f"(must lie in {ESTIMATE_RANGE}); traced flops "
               f"{est['flops']:.4e} against model_flops {mf:.4e} "
-              f"({est['flops'] / mf:.4f}x); traced in {est['trace_s']:.2f} s")
+              f"({est['flops'] / mf:.4f}x); collective bytes a step "
+              f"{ {k: f'{v:.4e}' for k, v in est['roofline']['coll_breakdown'].items()} }; "
+              f"traced in {est['trace_s']:.2f} s")
         if not ESTIMATE_RANGE[0] < ratio < ESTIMATE_RANGE[1]:
-            bad.append(arch)
+            bad.append(label)
     if bad:
         raise AssertionError(f"phase 24: estimated peaks off for {bad}")
 
@@ -2191,14 +2368,15 @@ def main() -> int:
         got, peaks[arch] = timed(f"{n} train {arch}", phase_train, arch)
         launches.update(got)
     launches.update(timed("17-18 sync", phase_sync_nccl))
-    launches.update(timed("17-18 sync", phase_sync_gloo))
+    got, fsdp_peak = timed("17-18 sync", phase_sync_gloo)
+    launches.update(got)
     timed("19-21 deepseek-v3", phase_mla_block)
     timed("19-21 deepseek-v3", phase_small, MLA_ARCH)
     launches.update(timed("19-21 deepseek-v3", phase_serve_mla))
     torch.cuda.empty_cache()
     timed("22-23 whisper", phase_small, ENC_ARCH)
     launches.update(timed("22-23 whisper", phase_serve_whisper))
-    timed("24 estimate", phase_estimate, peaks, card)
+    timed("24 estimate", phase_estimate, peaks, fsdp_peak, card)
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]

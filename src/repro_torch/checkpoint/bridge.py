@@ -5,6 +5,11 @@ The JAX package saves a flat ``{key: array}`` dict (``arrays.npz`` in a
 ``segments/0/0/attn/wq`` of shape ``[R, d_in, d_out]``, with bf16 values
 stored as their exact fp32 upcasts.  The port names its parameters after
 the same paths ("." for "/"), so the mapping is one to one.
+
+A model sharded under ``RunConfig.fsdp`` (``Model.shards``) is carried
+whole all the same: ``to_flat`` gathers each sharded tensor (a collective:
+every rank of the model's group calls it) and ``from_flat`` copies each
+rank's rows of the whole array.
 """
 from __future__ import annotations
 
@@ -29,9 +34,17 @@ def host_copy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", dtype, copy=True).numpy()
 
 
+def whole(model: nn.Module, name: str, p: torch.Tensor) -> torch.Tensor:
+    """Parameter ``name`` of ``model`` whole: gathered across the ranks
+    where ``model.shards`` holds it sharded (a collective), else ``p``."""
+    shards = getattr(model, "shards", None)
+    return shards.whole(p) if shards and name in shards else p
+
+
 def to_flat(model: nn.Module) -> dict[str, np.ndarray]:
     """Every parameter as an fp32 numpy array under its checkpoint key."""
-    return {_key(name): host_copy(p) for name, p in model.named_parameters()}
+    return {_key(name): host_copy(whole(model, name, p))
+            for name, p in model.named_parameters()}
 
 
 @torch.no_grad()
@@ -40,18 +53,23 @@ def from_flat(flat: Mapping[str, np.ndarray], model: nn.Module) -> nn.Module:
 
     Keys and shapes must match exactly; values are cast to each parameter's
     dtype (exact for bf16 values stored as fp32 upcasts)."""
-    params = {_key(name): p for name, p in model.named_parameters()}
+    shards = getattr(model, "shards", None)
+    params = {_key(name): (name, p) for name, p in model.named_parameters()}
     missing = sorted(params.keys() - flat.keys())
     extra = sorted(flat.keys() - params.keys())
     if missing or extra:
         raise KeyError(f"checkpoint keys do not match the model: missing "
                        f"{missing}, unexpected {extra}")
-    for key, p in params.items():
+    for key, (name, p) in params.items():
         arr = np.asarray(flat[key])
-        if arr.shape != tuple(p.shape):
+        mine = shards and name in shards
+        shape = shards.whole_shape(p) if mine else tuple(p.shape)
+        if arr.shape != shape:
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
-                             f"parameter shape {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(arr))     # cast on the host, then copied
+                             f"parameter shape {shape}")
+        src = torch.from_numpy(arr)
+        # cast on the host, then copied
+        p.copy_(shards.mine(src) if mine else src)
     return model
 
 

@@ -18,6 +18,16 @@ accumulator of gradient compression (``err/<path>``).
 ``restore`` reads one at a time: the host holds one array, not the tree
 (an olmoe-1b-7b train state is ~41.5 GB of npz).  ``save_async`` takes
 the whole snapshot first, as it must.
+
+A train state sharded under ``RunConfig.fsdp`` (its model's ``shards``,
+``sync.shard``) is saved in the same layout, whole: each sharded leaf (a
+parameter, and what a dict keys by its name: a moment, its int8 codes
+and scales, the error accumulator) is gathered one leaf at a time, and
+rank 0 of the model's group writes it.  Every rank of that group calls
+``save`` (the gathers are collectives); the others write nothing.
+``restore`` gives each rank its rows of each whole array.  So a checkpoint
+written under ``fsdp`` has the keys, shapes and values of one written
+without it, and restores into either, and into JAX.
 """
 from __future__ import annotations
 
@@ -43,24 +53,54 @@ def _join(prefix: str, key: str) -> str:
     return f"{prefix}{SEP}{key}" if prefix else key
 
 
-def _leaves(tree: Any, prefix: str = ""
+def _shards(tree: Any):
+    """The ``shards`` of the sharded model in ``tree``, or None."""
+    if isinstance(tree, nn.Module):
+        shards = getattr(tree, "shards", None)
+        return shards if shards else None
+    if isinstance(tree, dict):
+        for v in tree.values():
+            found = _shards(v)
+            if found is not None:
+                return found
+    return None
+
+
+def _leaves(tree: Any, prefix: str = "", shards=None, sharded=False
             ) -> Iterator[tuple[str, torch.Tensor]]:
-    """(key, tensor) for every leaf of ``tree``, in order, uncopied."""
+    """(key, tensor) for every leaf of ``tree``, in order, uncopied; a
+    sharded one (under a dict key that ``shards`` names) gathered
+    whole."""
     if isinstance(tree, nn.Module):
         for name, p in tree.named_parameters():
-            yield _join(prefix, name), p
+            yield _join(prefix, name), bridge.whole(tree, name, p)
     elif isinstance(tree, torch.Tensor):
-        yield prefix, tree
+        yield prefix, shards.whole(tree) if sharded else tree
     elif isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _leaves(v, _join(prefix, k))
+            yield from _leaves(v, _join(prefix, k), shards,
+                               sharded or (shards is not None
+                                           and k in shards))
     else:
         raise TypeError(f"cannot checkpoint {type(tree).__name__} at "
                         f"{prefix or 'the root'}")
 
 
+def is_sharded(tree: Any) -> bool:
+    """Whether ``tree`` holds a model sharded under ``RunConfig.fsdp``."""
+    return _shards(tree) is not None
+
+
+def _writer(tree: Any) -> bool:
+    """Whether this process writes ``tree``: always, but under sharding
+    only rank 0 of the model's group."""
+    shards = _shards(tree)
+    return shards is None or shards.comm.rank == 0
+
+
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    return {key: bridge.host_copy(t) for key, t in _leaves(tree)}
+    return {key: bridge.host_copy(t)
+            for key, t in _leaves(tree, shards=_shards(tree))}
 
 
 def _savez(path: str, arrays: Iterable[tuple[str, np.ndarray]]) -> None:
@@ -92,17 +132,29 @@ def _write(directory: str, step: int,
 
 
 def save(directory: str, step: int, tree: Any,
-         meta: Optional[dict] = None, keep: int = 3) -> str:
-    """Atomic checkpoint write; prunes to the newest ``keep`` steps."""
-    arrays = ((key, bridge.host_copy(t)) for key, t in _leaves(tree))
+         meta: Optional[dict] = None, keep: int = 3) -> Optional[str]:
+    """Atomic checkpoint write; prunes to the newest ``keep`` steps.  A
+    sharded tree's every rank calls it; only rank 0 writes (the others
+    return None)."""
+    leaves = _leaves(tree, shards=_shards(tree))
+    if not _writer(tree):
+        for _ in leaves:            # take part in each gather
+            pass
+        return None
+    arrays = ((key, bridge.host_copy(t)) for key, t in leaves)
     return _write(directory, step, arrays, meta, keep)
 
 
 def save_async(directory: str, step: int, tree: Any,
                meta: Optional[dict] = None, keep: int = 3
-               ) -> threading.Thread:
+               ) -> Optional[threading.Thread]:
     """Snapshot to host memory now, write on a background thread (training
-    continues while bytes hit disk)."""
+    continues while bytes hit disk).  A sharded tree's every rank calls
+    it; only rank 0 snapshots and writes (the others return None)."""
+    if not _writer(tree):
+        for _ in _leaves(tree, shards=_shards(tree)):
+            pass
+        return None
     flat = _flatten(tree)           # copied off the device here, in order
     t = threading.Thread(target=_write,
                          args=(directory, step, flat.items(), meta, keep),
@@ -155,20 +207,24 @@ class _Under(Mapping):
 
 
 @torch.no_grad()
-def _fill(tree: Any, data, prefix: str = "") -> None:
+def _fill(tree: Any, data, prefix: str = "", shards=None,
+          sharded=False) -> None:
     if isinstance(tree, nn.Module):
         bridge.from_flat(_Under(data, _join(prefix, "")), tree)
     elif isinstance(tree, torch.Tensor):
         if prefix not in data:
             raise KeyError(f"checkpoint missing {prefix}")
         arr = data[prefix]
-        if arr.shape != tuple(tree.shape):
+        shape = shards.whole_shape(tree) if sharded else tuple(tree.shape)
+        if arr.shape != shape:
             raise ValueError(f"{prefix}: checkpoint shape {arr.shape} != "
-                             f"target {tuple(tree.shape)}")
-        tree.copy_(torch.from_numpy(arr))
+                             f"target {shape}")
+        src = torch.from_numpy(arr)
+        tree.copy_(shards.mine(src) if sharded else src)
     else:
         for k, v in tree.items():
-            _fill(v, data, _join(prefix, k))
+            _fill(v, data, _join(prefix, k), shards,
+                  sharded or (shards is not None and k in shards))
 
 
 def restore(directory: str, step: int, target: Any) -> Any:
@@ -177,7 +233,7 @@ def restore(directory: str, step: int, target: Any) -> Any:
     module's keys must match the checkpoint's exactly."""
     path = os.path.join(directory, f"step_{step:08d}", "arrays.npz")
     with np.load(path) as data:
-        _fill(target, data)
+        _fill(target, data, shards=_shards(target))
     return target
 
 

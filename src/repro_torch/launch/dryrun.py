@@ -15,9 +15,10 @@ For each cell this
      bytes (``_bytes_mode``: every operator's inputs and outputs, an upper
      bound on the traffic, as XLA's "bytes accessed" is) and the peak memory
      (``MemTracker``, split into parameters, gradients, optimizer state,
-     activations and temporaries as they stand at the peak), and adds the
-     bytes a ``GradSync`` would
-     all-reduce per rank (train only: the gradients × 2(W−1)/W);
+     activations and temporaries as they stand at the peak), and the
+     bytes the rank's collectives put on its link: replicated, what a
+     ``GradSync`` would all-reduce (train only: the gradients ×
+     2(W−1)/W); sharded, those its stand-in collectives were asked for;
   4. fills a ``launch.roofline.Roofline`` on the ``H100`` and says whether
      the peak fits the card's 80 GB.
 
@@ -26,10 +27,18 @@ A FakeTensor reports its fake device, so each kernel wrapper of
 counted work is the plain version's (``PLAIN_NOTE``).  No kernel is built
 and no device is touched.
 
-The port is data-parallel only: every rank holds the whole model, its
-gradients and its optimizer state.  ``default_run`` keeps what the JAX
-package's would choose beside the port's choice (no ``fsdp``, batch over
-the data axis), and the record says which cells then do not fit.
+The port's ranks are data-parallel; ``default_run`` takes the JAX
+package's choice of ``fsdp`` (above 5 B parameters) and keeps JAX's whole
+choice beside the port's (the batch over the data axis only: JAX's
+``batch_axes="all"`` needs its "model" axis).  A sharded cell is traced
+as one rank of ``world`` (``sync.shard``): the model holds the rank's
+rows, each repeat's rows are gathered into whole tensors before it runs
+(again in remat's recompute), and the gradients are reduce-scattered
+inside the backward by a ``GradSync``, all through ``_TracedRanks``, a
+stand-in for the world's collectives that allocates what a real one
+would and counts its bytes.  So the peak holds one repeat's gathered
+rows and the sync's buffers.  A replicated cell is one rank without a
+process group, as before.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
@@ -59,6 +68,9 @@ from repro_torch.launch.specs import decode_specs, input_specs
 from repro_torch.launch.train import model_flops
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, AdamWConfig, compression
+from repro_torch.sync import shard
+from repro_torch.sync.overlap import GradSync
+from repro_torch.sync.plan import plan_sync
 
 # the production scale of ``sync.plan``: 256 H100s
 WORLD = 256
@@ -72,11 +84,12 @@ BYTES_NOTE = ("an upper bound: each operator's inputs and outputs, views "
               "excluded, as XLA's bytes accessed")
 PEAK_NOTE = ("MemTracker on fake tensors: what PyTorch's allocator would "
              "hold at once, without the CUDA context, the allocator's "
-             "rounding and fragmentation, or the GradSync buckets of world "
-             "> 1 (the trace is one rank without a process group); the "
-             "split is the peak's own: a train step peaks early in its "
-             "backward, where the gradients made so far (the head's) are "
-             "all its gradients holds")
+             "rounding and fragmentation, or, replicated, the GradSync "
+             "buckets of world > 1 (that trace is one rank without a "
+             "process group; a sharded one holds its gathered rows and "
+             "sync buffers); the split is the peak's own: a train step "
+             "peaks early in its backward, where the gradients made so far "
+             "(the head's) are all its gradients holds")
 # MemTracker's categories, as the record names them
 _SPLIT = {"Parameter": "parameters", "Gradient": "gradients",
           "Other": "optimizer", "Activation": "activations",
@@ -84,12 +97,17 @@ _SPLIT = {"Parameter": "parameters", "Gradient": "gradients",
 
 
 def default_run(cfg: ArchConfig, overrides: Optional[dict] = None,
-                batch: Optional[int] = None) -> tuple[RunConfig, dict]:
+                batch: Optional[int] = None,
+                shape: Optional[ShapeConfig] = None
+                ) -> tuple[RunConfig, dict]:
     """(the port's RunConfig, what the JAX package's ``default_run`` would
-    choose).  The port takes JAX's ``opt_8bit``, ``remat`` and
+    choose).  The port takes JAX's ``fsdp``, ``opt_8bit``, ``remat`` and
     ``microbatches`` (cut to a divisor of ``batch``, the rows of one
-    rank); ``fsdp`` stays False and ``batch_axes`` ``"dp"``, the only
-    values ``models.model._check_run`` accepts."""
+    rank); ``batch_axes`` stays ``"dp"``, the only value
+    ``models.model._check_run`` accepts.  For a train ``shape`` the sync
+    mode is the one ``sync.plan.plan_sync`` picks for it at 256 H100s
+    (under fsdp barrier mode keeps every repeat's whole gradients until
+    the backward ends)."""
     n = cfg.param_counts()["total"]
     small = n < 1e9
     fsdp = n > 5e9
@@ -99,8 +117,11 @@ def default_run(cfg: ArchConfig, overrides: Optional[dict] = None,
     mb = jax_run["microbatches"]
     if batch is not None:
         mb = math.gcd(mb, batch)
-    run = RunConfig(opt_8bit=jax_run["opt_8bit"], remat=True,
+    run = RunConfig(fsdp=fsdp, opt_8bit=jax_run["opt_8bit"], remat=True,
                     microbatches=mb)
+    if shape is not None and shape.kind == "train":
+        run = dataclasses.replace(
+            run, sync_mode=plan_sync(cfg, shape, chips=WORLD).mode)
     if overrides:
         run = dataclasses.replace(run, **overrides)
     return run, jax_run
@@ -139,12 +160,49 @@ class _Loss(nn.Module):
     """``model.loss`` called through a module, so that ``MemTracker`` can
     tell the backward (temporaries) from the forward (activations)."""
 
-    def __init__(self, model: Model):
+    def __init__(self, model: Model, sync: Optional[GradSync] = None):
         super().__init__()
-        self.model = model
+        self.model, self.sync = model, sync
 
     def forward(self, batch: dict) -> torch.Tensor:
-        return self.model.loss(batch)[0]
+        return self.model.loss(batch, self.sync)[0]
+
+
+class _Done:
+    """A finished collective's handle; it holds the collective's input
+    until it is waited on, as a real handle does."""
+
+    def __init__(self, inp: torch.Tensor):
+        self.inp = inp
+
+    def wait(self) -> None:
+        self.inp = None
+
+
+class _TracedRanks(shard.Comm):
+    """Rank 0 of ``world`` data-parallel ranks in a trace: each collective
+    leaves its output as allocated (nothing is communicated) and adds the
+    bytes a ring puts on one rank's link, by kind, to ``bytes``."""
+
+    def __init__(self, world: int):
+        self.group, self.world, self.rank = None, world, 0
+        self.bytes: dict[str, float] = {}
+
+    def _count(self, kind: str, t: torch.Tensor, times: float) -> None:
+        n = t.numel() * t.element_size() * times * (self.world - 1) / \
+            self.world
+        self.bytes[kind] = self.bytes.get(kind, 0.0) + n
+
+    def all_gather(self, out, inp):
+        self._count("all-gather", out, 1)
+
+    def reduce_scatter(self, out, inp):
+        self._count("reduce-scatter", inp, 1)
+        return _Done(inp)
+
+    def all_reduce(self, t, op=None, async_op=False):
+        self._count("all-reduce", t, 2)
+        return _Done(t) if async_op else None
 
 
 def _nbytes(tensors) -> int:
@@ -159,14 +217,18 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
     ``batch`` rows, in bf16 on fake tensors, and measure it.  ``optimizer``
     (train) defaults to ``AdamW`` with ``run.opt_8bit`` moments;
     ``text_only`` feeds tokens alone, as ``data.SyntheticLM`` does, with no
-    frame or vision embeddings."""
+    frame or vision embeddings.  Under ``run.fsdp`` the rank is rank 0 of
+    ``world`` (``_TracedRanks``): its rows of the sharded tensors, their
+    gathers and a ``GradSync`` in ``run.sync_mode``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
     t0 = time.perf_counter()
+    ranks = _TracedRanks(world) if run.fsdp else None
     with FakeTensorMode():
-        model = Model(cfg, run, dtype=torch.bfloat16, device="cpu")
+        model = Model(cfg, run, dtype=torch.bfloat16, device="cpu",
+                      group=ranks)
         params = list(model.parameters())
         state: dict = {}
         if shape.kind == "train":
@@ -187,16 +249,19 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
                     inputs = {"tokens": inputs["tokens"]}
             if shape.kind == "train":
                 # the module lives until the backward is done
-                loss_mod = _Loss(model)
+                sync = GradSync(ranks) if ranks is not None else None
+                loss_mod = _Loss(model, sync)
                 loss = loss_mod(inputs)
                 grads = torch.autograd.grad(loss, params, allow_unused=True,
                                             materialize_grads=True)
                 del loss
+                if sync is not None:
+                    grads = sync.finish(params, grads)
                 names = [n for n, _ in model.named_parameters()]
                 grads = dict(zip(names, grads))
                 if run.grad_compression:
                     g8, scales, state["err"] = compression.compress_tree(
-                        grads, state["err"])
+                        grads, state["err"], model.shards)
                     grads = compression.decompress_tree(g8, scales)
                 opt.update(grads, state, model)
                 del grads
@@ -214,15 +279,19 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
                     model.decode_step(cache, tokens, index, enc_out=enc_out)
         peak = mem.get_tracker_snapshot("peak")[torch.device("cpu")]
     param_bytes = _nbytes(params)
-    # GradSync all-reduces every gradient in its parameter's dtype; a ring
-    # all-reduce puts 2(W-1)/W of the bytes on each rank's link
-    coll = (2.0 * (world - 1) / world * param_bytes
-            if shape.kind == "train" else 0.0)
+    if ranks is not None:
+        breakdown = dict(ranks.bytes)
+    else:
+        # GradSync all-reduces every gradient in its parameter's dtype; a
+        # ring all-reduce puts 2(W-1)/W of the bytes on each rank's link
+        coll = (2.0 * (world - 1) / world * param_bytes
+                if shape.kind == "train" else 0.0)
+        breakdown = {"all-reduce": coll} if coll else {}
+    coll = sum(breakdown.values())
     # one rank's terms against one rank's 6·N·D: chips 1
     mf = model_flops(cfg, dataclasses.replace(shape, global_batch=batch))
     roof = Roofline(flops=flops.get_total_flops(), hbm_bytes=nbytes.total,
-                    coll_bytes=coll,
-                    coll_breakdown={"all-reduce": coll} if coll else {},
+                    coll_bytes=coll, coll_breakdown=breakdown,
                     chips=1, model_flops=mf)
     split = {name: peak.get(key, 0) for key, name in _SPLIT.items()}
     return {"flops": roof.flops, "hbm_bytes": roof.hbm_bytes,
@@ -244,7 +313,7 @@ def trace_cell(arch: str, shape_name: str, *, world: int = WORLD,
     cfg = cfg or configs.get(arch)
     shape = SHAPES[shape_name]
     batch = max(1, shape.global_batch // world)
-    run, jax_run = default_run(cfg, run_overrides, batch)
+    run, jax_run = default_run(cfg, run_overrides, batch, shape)
     m = trace_step(cfg, run, shape, batch, world=world)
     return {
         "arch": arch, "shape": shape_name, "kind": shape.kind,

@@ -27,6 +27,12 @@ runs on ``cuda:<LOCAL_RANK>`` with NCCL, or on the CPU with gloo, and
 takes its ``B / world`` rows of every global batch; rank 0 prints and
 writes the checkpoints.  JAX's ``--mesh`` (GSPMD over a device mesh) has
 no counterpart: the port is data-parallel only.
+
+``RunConfig.fsdp`` (``sync.shard``) shards the parameters, their
+gradients, the moments and the error accumulator over the ranks of the
+group: build the ``Model`` over that group (``Model(cfg, run,
+group=group)``) and pass the same group here.  As JAX's CLI, the CLI sets
+no ``fsdp``; a program sets it in the ``RunConfig`` it builds.
 """
 from __future__ import annotations
 
@@ -141,9 +147,17 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
     barrier mode all after it) before compression and the optimizer, and
     the metrics are averaged too.  ``train_step.syncs`` holds the last
     call's ``GradSync`` objects (one a microbatch), whose ``log`` shows
-    when each collective was issued."""
+    when each collective was issued.  Under ``run.fsdp`` the model must be
+    built over ``group``: its sharded gradients are reduce-scattered into
+    the rank's rows, and compression and the optimizer update those
+    rows."""
     names = [name for name, _ in model.named_parameters()]
     rank, world = (0, 1) if group is None else (group.rank(), group.size())
+    if run.fsdp != model.run.fsdp or (run.fsdp
+                                      and not model.shards.over(group)):
+        raise ValueError("fsdp: build the Model with the RunConfig and "
+                         "over the process group that make_train_step "
+                         "takes")
 
     def grad_fn(params: Model, batch: dict):
         sync = overlap.GradSync(group)
@@ -198,7 +212,7 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
         new_state = dict(state)
         if run.grad_compression:
             g8, scales, new_err = compression.compress_tree(
-                grads, state["err"])
+                grads, state["err"], state["params"].shards)
             del grads
             grads = compression.decompress_tree(g8, scales)
             new_state["err"] = new_err
@@ -214,7 +228,10 @@ def init_train_state(model: Model, optimizer: AdamW, run: RunConfig,
                      generator: torch.Generator) -> dict:
     """Fill ``model`` from ``generator`` and pair it with fresh optimizer
     state: ``{"params": model, "opt": {"step", "m", "v"}}``, and a zero
-    error accumulator ``"err"`` under ``run.grad_compression``."""
+    error accumulator ``"err"`` under ``run.grad_compression``.  Under
+    ``run.fsdp`` each rank draws every tensor whole and keeps its rows
+    (``Model.init``), one repeat's tensor at a time, so that the state is
+    the replicated run's, sliced."""
     model.init(generator)
     state = {"params": model, "opt": optimizer.init(model)}
     if run.grad_compression:
@@ -265,7 +282,7 @@ def _train(args, dev: torch.device, rank: int,
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
     run = RunConfig(sync_mode=args.sync_mode, remat=True)
-    model = Model(cfg, run, device=dev)
+    model = Model(cfg, run, device=dev, group=group)
     opt = cli_optimizer(args.steps, args.lr)
 
     data = SyntheticLM(DataConfig(

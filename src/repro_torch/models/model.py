@@ -39,6 +39,7 @@ from repro_torch.models.layers import (
     cross_entropy, dense_init, embed_init, mlp, mlp_init, mlp_shapes,
     rmsnorm,
 )
+from repro_torch.sync import shard
 
 
 # ----------------------------------------------------------------------
@@ -99,12 +100,14 @@ def derive_segments(cfg: ArchConfig, *, cross: bool = False,
 
 
 # RunConfig fields the port reads (``opt_8bit`` and ``grad_compression``
-# in ``launch.train``).  The others (``fsdp``, ``batch_axes``,
-# ``moe_combine``, ``seq_shard``) steer the JAX package's GSPMD sharding of
-# one logical program over a mesh, which the port, one process a card
-# with data parallelism by ``torch.distributed``, has no counterpart of
+# in ``launch.train``; ``fsdp`` shards the parameters over the
+# data-parallel ranks, ``sync.shard``).  The others (``batch_axes``,
+# ``moe_combine``, ``seq_shard``) place work on the JAX package's "model"
+# mesh axis (batch over every axis, the MoE combine's reduction, sequence
+# parallelism), which the port, one process a card with data parallelism
+# by ``torch.distributed``, does not have
 _READ = ("attn_impl", "ssm_chunk", "remat", "microbatches", "logits_fp32",
-         "opt_8bit", "grad_compression", "sync_mode")
+         "opt_8bit", "grad_compression", "sync_mode", "fsdp")
 SYNC_MODES = ("barrier", "bucketed")
 
 
@@ -118,8 +121,9 @@ def _check_run(run: RunConfig) -> None:
               if f.name not in _READ and getattr(run, f.name) != f.default]
     if unread:
         raise NotImplementedError(
-            f"RunConfig fields {unread} steer the JAX package's GSPMD "
-            f"sharding, which the port does not have")
+            f"RunConfig fields {unread} need the JAX package's \"model\" "
+            f"mesh axis, which the port (data-parallel ranks only) does "
+            f"not have")
 
 
 def _leaves(tree: dict) -> list:
@@ -142,80 +146,97 @@ class _Block(nn.Module):
     with ``repeats=None`` one block, unstacked (the MTP block).
 
     Parameter names follow the JAX pytree (``ln1``, ``attn.wq``, ...), so
-    ``named_parameters`` maps onto the checkpoint keys."""
+    ``named_parameters`` maps onto the checkpoint keys.  Over a ``comm``
+    (``RunConfig.fsdp``) each tensor that ``sync.shard`` shards holds this
+    rank's rows; ``sharded`` names them (``attn.wq``, ...)."""
 
     def __init__(self, spec: BlockSpec, cfg: ArchConfig,
                  repeats: Optional[int], dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, comm: Optional[shard.Comm] = None):
         super().__init__()
         self.cfg = cfg
+        self.comm = comm
+        self.sharded: set[str] = set()
         lead = () if repeats is None else (repeats,)
 
-        def empty(*shape, dtype=dtype):
-            return nn.Parameter(torch.empty(lead + shape, dtype=dtype,
+        def empty(*shape, dtype=dtype, name=None):
+            shape = lead + shape
+            if comm is not None and name is not None and shard.shard_axis(
+                    name.split("."), shape, comm.world) is not None:
+                self.sharded.add(name)
+                shape = shard.local_shape(name.split("."), shape, comm.world)
+            return nn.Parameter(torch.empty(shape, dtype=dtype,
                                             device=device))
 
-        def stacked(shapes):
-            return nn.ParameterDict({name: empty(*shape)
-                                     for name, (shape, _) in shapes.items()})
+        def stacked(group, shapes):
+            return nn.ParameterDict({
+                name: empty(*shape, name=f"{group}.{name}")
+                for name, (shape, _) in shapes.items()})
 
-        def with_fp32(shapes, fp32):
+        def with_fp32(group, shapes, fp32):
             return nn.ParameterDict({
                 name: empty(*shape, dtype=torch.float32
-                            if name in fp32 else dtype)
+                            if name in fp32 else dtype,
+                            name=f"{group}.{name}")
                 for name, shape in shapes.items()})
 
         self.ln1 = empty(cfg.d_model)
         if spec.mixer == "attn":
-            self.attn = stacked(attn.mla_shapes(cfg)
+            self.attn = stacked("attn", attn.mla_shapes(cfg)
                                 if cfg.attn_type == "mla"
                                 else attn.gqa_shapes(cfg))
         else:
-            self.ssm = with_fp32(ssm.ssm_shapes(cfg), ssm.FP32_PARAMS)
+            self.ssm = with_fp32("ssm", ssm.ssm_shapes(cfg), ssm.FP32_PARAMS)
         if spec.cross:
             self.ln_x = empty(cfg.d_model)
-            self.xattn = stacked(attn.gqa_shapes(cfg))
+            self.xattn = stacked("xattn", attn.gqa_shapes(cfg))
         if spec.ffn == "dense":
             self.ln2 = empty(cfg.d_model)
-            self.mlp = stacked(mlp_shapes(cfg.d_model, cfg.d_ff,
-                                          cfg.mlp_type))
+            self.mlp = stacked("mlp", mlp_shapes(cfg.d_model, cfg.d_ff,
+                                                 cfg.mlp_type))
         elif spec.ffn == "moe":
             self.ln2 = empty(cfg.d_model)
-            self.moe = with_fp32(moe.moe_shapes(cfg), moe.FP32_PARAMS)
+            self.moe = with_fp32("moe", moe.moe_shapes(cfg), moe.FP32_PARAMS)
 
     def init_repeat(self, generator: torch.Generator,
                     r: Optional[int]) -> None:
         """Draw repeat r's parameters (all of an unstacked block's: r None)
         as the JAX block init does.  Each MoE tensor is drawn in fp32 and
         copied (cast) into its stack before the next is drawn, so init
-        holds one fp32 draw beside the parameters."""
+        holds one fp32 draw beside the parameters.  A sharded tensor keeps
+        this rank's rows of the whole draw, so that every rank draws what
+        one process would."""
         cfg, p = self.cfg, self.ln1
         kw = dict(dtype=p.dtype, device=p.device)
 
         def rows(t):
             return t if r is None else t[r]
 
-        def fill(params, draws):
+        def fill(group, params, draws):
             for name, w in draws:
+                if f"{group}.{name}" in self.sharded:
+                    w = shard.mine(self.comm, w)
                 rows(params[name]).copy_(w)
                 del w               # freed before the next draw
 
         rows(self.ln1).fill_(1.0)
         if hasattr(self, "attn"):
             init = attn.mla_init if cfg.attn_type == "mla" else attn.gqa_init
-            fill(self.attn, init(generator, cfg, **kw).items())
+            fill("attn", self.attn, init(generator, cfg, **kw).items())
         else:
-            fill(self.ssm, ssm.ssm_init(generator, cfg, **kw).items())
+            fill("ssm", self.ssm, ssm.ssm_init(generator, cfg, **kw).items())
         if hasattr(self, "xattn"):
             rows(self.ln_x).fill_(1.0)
-            fill(self.xattn, attn.gqa_init(generator, cfg, **kw).items())
+            fill("xattn", self.xattn,
+                 attn.gqa_init(generator, cfg, **kw).items())
         if hasattr(self, "mlp"):
             rows(self.ln2).fill_(1.0)
-            fill(self.mlp, mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                    cfg.mlp_type, **kw).items())
+            fill("mlp", self.mlp, mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                           cfg.mlp_type, **kw).items())
         if hasattr(self, "moe"):
             rows(self.ln2).fill_(1.0)
-            fill(self.moe, moe.moe_draws(generator, cfg, device=p.device))
+            fill("moe", self.moe, moe.moe_draws(generator, cfg,
+                                                device=p.device))
 
     def stacked(self) -> dict:
         """The parameters, stacked, as the nested dict the layer functions
@@ -241,18 +262,24 @@ class _Mtp(nn.Module):
     SPEC = BlockSpec("attn", "dense")
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, comm: Optional[shard.Comm] = None):
         super().__init__()
         d = cfg.d_model
-        self.proj = nn.Parameter(torch.empty((2 * d, d), dtype=dtype,
+        shape = (2 * d, d)
+        self.sharded = (comm is not None and shard.shard_axis(
+            ("mtp", "proj"), shape, comm.world) is not None)
+        if self.sharded:
+            shape = shard.local_shape(("mtp", "proj"), shape, comm.world)
+        self.proj = nn.Parameter(torch.empty(shape, dtype=dtype,
                                              device=device))
-        self.block = _Block(self.SPEC, cfg, None, dtype, device)
+        self.block = _Block(self.SPEC, cfg, None, dtype, device, comm)
         self.ln = nn.Parameter(torch.empty((d,), dtype=dtype, device=device))
 
-    def init(self, generator: torch.Generator) -> None:
+    def init(self, generator: torch.Generator, shards: shard.Shards) -> None:
         d = self.ln.shape[0]
-        self.proj.copy_(dense_init(generator, 2 * d, d, dtype=self.ln.dtype,
-                                   device=self.ln.device))
+        w = dense_init(generator, 2 * d, d, dtype=self.ln.dtype,
+                       device=self.ln.device)
+        self.proj.copy_(shards.mine(w) if "mtp.proj" in shards else w)
         self.block.init_repeat(generator, None)
         self.ln.fill_(1.0)
 
@@ -264,7 +291,12 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, run: RunConfig = RunConfig(), *,
                  dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, group=None):
+        """``group`` (a process group, or a ``sync.shard.Comm``): the
+        data-parallel ranks over which ``run.fsdp`` shards the parameters
+        (``shards`` names them; ``make_train_step`` takes the same group).
+        With ``run.fsdp`` and no group, the model is one process's, whole;
+        without ``run.fsdp`` the group is not read."""
         super().__init__()
         self.cfg = cfg
         self.run = run
@@ -279,26 +311,39 @@ class Model(nn.Module):
         _check_run(run)
         dev = _device.resolve(device)
         d, V = cfg.d_model, cfg.vocab_size
+        comm = shard.as_comm(group) if run.fsdp else None
+        names = []
 
-        def empty(*shape):
+        def empty(*shape, name=None):
+            if comm is not None and name is not None and shard.shard_axis(
+                    (name,), shape, comm.world) is not None:
+                names.append(name)
+                shape = shard.local_shape((name,), shape, comm.world)
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev))
 
         self.embed = empty(V, d)
         self.final_norm = empty(d)
         if not cfg.tie_embeddings:
-            self.lm_head = empty(d, V)
+            self.lm_head = empty(d, V, name="lm_head")
         if cfg.vision_embed_dim:
             self.vis_proj = empty(cfg.vision_embed_dim, d)
         self.segments = nn.ModuleList(
-            nn.ModuleList(_Block(spec, cfg, seg.repeats, dtype, dev)
+            nn.ModuleList(_Block(spec, cfg, seg.repeats, dtype, dev, comm)
                           for spec in seg.pattern)
             for seg in self.segments_spec)
         if cfg.encoder_layers:
             self.encoder = _Block(self.ENC_SPEC, cfg, cfg.encoder_layers,
-                                  dtype, dev)
+                                  dtype, dev, comm)
             self.enc_norm = empty(d)
         if cfg.mtp:
-            self.mtp = _Mtp(cfg, dtype, dev)
+            self.mtp = _Mtp(cfg, dtype, dev, comm)
+        names += [f"{prefix}.{name}" for prefix, m in self.named_modules()
+                  if isinstance(m, _Block) for name in m.sharded]
+        if cfg.mtp and self.mtp.sharded:
+            names.append("mtp.proj")
+        self.shards = shard.Shards(comm, names)
+        self._sharded_ids = {id(p) for n, p in self.named_parameters()
+                             if n in self.shards}
 
     @property
     def device(self) -> torch.device:
@@ -315,8 +360,10 @@ class Model(nn.Module):
                                     **kw))
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
-            self.lm_head.copy_(dense_init(generator, cfg.d_model,
-                                          cfg.vocab_size, **kw))
+            w = dense_init(generator, cfg.d_model, cfg.vocab_size, **kw)
+            self.lm_head.copy_(self.shards.mine(w) if "lm_head" in self.shards
+                               else w)
+            del w
         if cfg.vision_embed_dim:
             self.vis_proj.copy_(dense_init(generator, cfg.vision_embed_dim,
                                            cfg.d_model, **kw))
@@ -329,7 +376,7 @@ class Model(nn.Module):
                 self.encoder.init_repeat(generator, r)
             self.enc_norm.fill_(1.0)
         if cfg.mtp:
-            self.mtp.init(generator)
+            self.mtp.init(generator, self.shards)
         return self
 
     # ------------------------------------------------------------------
@@ -372,17 +419,41 @@ class Model(nn.Module):
             x = x + y
         return x, aux
 
-    def _run_repeat(self, si: int, r: int, x, *, positions=None,
-                    caches=None, cache_index=None, enc_out=None, sync=None):
-        """Repeat r of segment si: each of its pattern's blocks in turn,
-        on their parameters' rows r (under a ``GradSync``, through its
-        bucket, so their gradients are reduced when this repeat's backward
-        is done).  Returns (x, the MoE blocks' summed aux loss, or None)."""
-        trees = [block.stacked() for block in self.segments[si]]
+    def _rows(self, key: tuple, trees: list, r: Optional[int], sync=None,
+              bucket: bool = False) -> list[dict]:
+        """Row r of each tensor of ``trees`` (the whole tensor: r None), in
+        the trees' shape.  A sharded tensor's row is gathered whole across
+        the ranks and its gradient reduce-scattered back into this rank's
+        rows (``sync.shard.gathered``; by ``sync``, a ``GradSync``, where
+        there is one); with ``bucket`` the other rows pass through
+        ``sync``'s bucket, so that their gradients are reduced as soon as
+        this repeat's backward is done."""
         stacks = [t for tree in trees for t in _leaves(tree)]
-        rows = iter(sync.bucket((si, r), stacks, r) if sync is not None
-                    else [t[r] for t in stacks])
-        bps = [_rebuild(tree, rows) for tree in trees]
+        whole = [t for t in stacks if id(t) in self._sharded_ids]
+        rest = [t for t in stacks if id(t) not in self._sharded_ids]
+        got = {}
+        if whole:
+            got.update(zip(map(id, whole), shard.gathered(
+                self.shards.comm, sync, key, whole, r,
+                now=self.run.sync_mode == "bucketed")))
+        if rest:
+            rows = (sync.bucket(key, rest, r) if bucket
+                    else [t if r is None else t[r] for t in rest])
+            got.update(zip(map(id, rest), rows))
+        rows = iter([got[id(t)] for t in stacks])
+        return [_rebuild(tree, rows) for tree in trees]
+
+    def _run_repeat(self, si: int, r: int, x, *, positions=None,
+                    caches=None, cache_index=None, enc_out=None, sync=None,
+                    bucketed: bool = False):
+        """Repeat r of segment si: each of its pattern's blocks in turn,
+        on their parameters' rows r (``_rows``: the sharded ones gathered;
+        the others, ``bucketed``, through ``sync``'s bucket, so that their
+        gradients are reduced when this repeat's backward is done).
+        Returns (x, the MoE blocks' summed aux loss, or None)."""
+        bps = self._rows((si, r), [block.stacked()
+                                   for block in self.segments[si]],
+                         r, sync, bucket=bucketed)
         total_aux = None
         for j, spec in enumerate(self.segments_spec[si].pattern):
             cache = None
@@ -410,14 +481,15 @@ class Model(nn.Module):
         parameter gradients are reduced across the data-parallel ranks
         inside the backward, as soon as that repeat's backward is done
         (the JAX package's synced scan); otherwise ``sync.finish`` reduces
-        them after the backward."""
-        remat = (self.run.remat and caches is None
-                 and torch.is_grad_enabled())
-        if not (self.run.sync_mode == "bucketed" and caches is None
-                and torch.is_grad_enabled()):
-            sync = None
+        them after the backward.  Under ``run.fsdp`` each repeat's sharded
+        rows are gathered before it runs, again in remat's recompute, as
+        JAX's FSDP re-gathers them (``sync.shard``)."""
+        grad = caches is None and torch.is_grad_enabled()
+        remat = self.run.remat and grad
+        sync = sync if grad else None
+        bucketed = sync is not None and self.run.sync_mode == "bucketed"
         kw = dict(positions=positions, caches=caches, cache_index=cache_index,
-                  enc_out=enc_out, sync=sync)
+                  enc_out=enc_out, sync=sync, bucketed=bucketed)
         total_aux = 0.0
         for si, seg in enumerate(self.segments_spec):
             for r in range(seg.repeats):
@@ -427,29 +499,32 @@ class Model(nn.Module):
                         **kw)
                 else:
                     x, aux = self._run_repeat(si, r, x, **kw)
-                if sync is not None:
+                if bucketed:
                     sync.mark(x, (si, r))
                 if aux is not None:
                     total_aux = total_aux + aux
         return x, total_aux
 
     # ------------------------------------------------------------------
-    def _encode_layer(self, r: int, x):
-        return self._apply_block(self.encoder.at(r), self.ENC_SPEC, x)[0]
+    def _encode_layer(self, r: int, x, sync=None):
+        bp, = self._rows(("encoder", r), [self.encoder.stacked()], r, sync)
+        return self._apply_block(bp, self.ENC_SPEC, x)[0]
 
-    def encode(self, batch: dict) -> torch.Tensor:
+    def encode(self, batch: dict, sync=None) -> torch.Tensor:
         """Whisper's encoder over precomputed frame embeddings
         ``batch["audio_embeds"]`` [B, frames, d] (the conv front end is a
         stub, as in the JAX package); each layer under
-        ``torch.utils.checkpoint`` where ``_run_segments`` would use it."""
+        ``torch.utils.checkpoint`` where ``_run_segments`` would use it.
+        ``sync``: the backward's ``GradSync`` (``loss``)."""
         x = batch["audio_embeds"].to(self.dtype)
         remat = self.run.remat and torch.is_grad_enabled()
+        sync = sync if torch.is_grad_enabled() else None
         for r in range(self.cfg.encoder_layers):
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    self._encode_layer, r, x, use_reentrant=False)
+                    self._encode_layer, r, x, sync, use_reentrant=False)
             else:
-                x = self._encode_layer(r, x)
+                x = self._encode_layer(r, x, sync)
         return rmsnorm(self.enc_norm, x, self.cfg.norm_eps)
 
     def _embed_inputs(self, batch: dict):
@@ -463,11 +538,12 @@ class Model(nn.Module):
             n_prefix = v.shape[1]
         return x, n_prefix
 
-    def _head(self, x):
+    def _head(self, x, sync=None):
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
             return x @ self.embed.T
-        return x @ self.lm_head
+        head, = self._rows(("head",), [{"w": self.lm_head}], None, sync)
+        return x @ head["w"]
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
@@ -485,14 +561,15 @@ class Model(nn.Module):
         (a ``sync.overlap.GradSync``) is the backward's gradient sync, which
         ``_run_segments`` wires in bucketed mode."""
         cfg = self.cfg
-        enc_out = self.encode(batch) if cfg.encoder_layers else None
+        sync = sync if torch.is_grad_enabled() else None
+        enc_out = self.encode(batch, sync) if cfg.encoder_layers else None
         x, n_prefix = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self._run_segments(x, positions=positions, enc_out=enc_out,
                                     sync=sync)
         tokens = batch["tokens"]
         h = x[:, n_prefix:]                       # text region only
-        logits = self._head(h[:, :-1])
+        logits = self._head(h[:, :-1], sync)
         if self.run.logits_fp32:
             logits = logits.float()
         ce = cross_entropy(logits, tokens[:, 1:])
@@ -503,12 +580,14 @@ class Model(nn.Module):
             # predict t+2 from [h_t ; emb(t+1)] through one more block; its
             # aux loss is dropped and its logits are fp32, as in JAX
             mtp = self.mtp
+            proj, bp = self._rows(("mtp",), [{"proj": mtp.proj},
+                                             mtp.block.stacked()], None, sync)
             h_in = rmsnorm(mtp.ln, h[:, :-1], cfg.norm_eps)
             nxt = self.embed[tokens[:, 1:]].to(self.dtype)
-            z = torch.cat([h_in, nxt], dim=-1) @ mtp.proj
-            z, _ = self._apply_block(mtp.block.at(None), mtp.SPEC, z,
+            z = torch.cat([h_in, nxt], dim=-1) @ proj["proj"]
+            z, _ = self._apply_block(bp, mtp.SPEC, z,
                                      positions=positions[:z.shape[1]])
-            mtp_ce = cross_entropy(self._head(z[:, :-1]).float(),
+            mtp_ce = cross_entropy(self._head(z[:, :-1], sync).float(),
                                    tokens[:, 2:])
             loss = loss + 0.3 * mtp_ce
             metrics["mtp_ce"] = mtp_ce

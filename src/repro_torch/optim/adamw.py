@@ -18,6 +18,13 @@ leading axes, one slice at a time, so that its fp32 temporaries stay of
 that size (a stacked olmoe-1b-7b expert weight holds 2.1 G elements).
 Every operation of the update is elementwise or reduces along the last
 axis, so a walked tensor gets the whole tensor's result, bit for bit.
+
+Under ``RunConfig.fsdp`` the parameters of a ``Model`` with ``shards``
+(``sync.shard``) are each rank's rows, and so are their gradients and
+moments: the update runs on the rows, and each int8 scale (one a
+last-axis row) is the whole tensor's.  Global-norm clipping sums the
+squares of the sharded gradients over the ranks and adds each replicated
+gradient once, so that every rank clips by the same norm.
 """
 from __future__ import annotations
 
@@ -147,10 +154,14 @@ class AdamW:
 
         scale = None
         if cfg.clip_norm is not None:
-            # on the card a bf16 tensor's norm accumulates in fp32 without
-            # an fp32 copy of it
-            sq = sum(torch.square(torch.linalg.vector_norm(
-                g, dtype=torch.float32)) for g in grads.values())
+            shards = getattr(params, "shards", None)
+            if shards:
+                sq = shards.sq_norm(grads)
+            else:
+                # on the card a bf16 tensor's norm accumulates in fp32
+                # without an fp32 copy of it
+                sq = sum(torch.square(torch.linalg.vector_norm(
+                    g, dtype=torch.float32)) for g in grads.values())
             scale = torch.clamp(cfg.clip_norm / (torch.sqrt(sq) + 1e-12),
                                 max=1.0)
 

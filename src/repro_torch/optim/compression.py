@@ -19,6 +19,7 @@ so e4m3fn's lack of an infinity never matters.
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import torch
@@ -36,12 +37,15 @@ def init_error_state(params: nn.Module) -> dict[str, torch.Tensor]:
             for name, p in params.named_parameters()}
 
 
-def compress_leaf(g: torch.Tensor, err: torch.Tensor
+def compress_leaf(g: torch.Tensor, err: torch.Tensor, absmax=None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(g8, scale, new_err): ``g + err`` in fp8 under a per-tensor absmax
-    scale (0-d fp32), and what the cast left out."""
+    scale (0-d fp32), and what the cast left out.  ``absmax(g32)`` gives
+    max|g32| (default: over ``g32`` itself; a rank's slice of a sharded
+    tensor takes the whole tensor's, ``sync.shard.Shards.absmax``)."""
     g32 = g.to(torch.float32) + err
-    absmax = torch.amax(torch.abs(g32))
+    absmax = (torch.amax(torch.abs(g32)) if absmax is None
+              else absmax(g32))
     # a divisor on the tensor's device: CUDA multiplies by the reciprocal
     # of a Python scalar divisor, one ulp off the quotient at times
     scale = torch.clamp(absmax, min=1e-12) / torch.tensor(
@@ -55,15 +59,23 @@ def decompress_leaf(g8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return g8.to(torch.float32) * scale
 
 
-def compress_tree(grads: Tree, err: Tree
+def compress_tree(grads: Tree, err: Tree, shards=None
                   ) -> tuple[dict, dict, dict]:
-    """``compress_leaf`` over every key: (g8, scale, new_err) trees."""
+    """``compress_leaf`` over every key: (g8, scale, new_err) trees.
+    ``shards`` (``sync.shard.Shards``, under ``RunConfig.fsdp``): the
+    parameters whose gradients and errors are this rank's rows, each
+    scaled by the whole tensor's absmax, the same on every rank, as JAX's
+    GSPMD takes it."""
     if grads.keys() != err.keys():
         raise KeyError(f"gradients and error state differ: "
                        f"{sorted(grads.keys() ^ err.keys())}")
     g8, scale, new_err = {}, {}, {}
     for name, g in grads.items():
-        g8[name], scale[name], new_err[name] = compress_leaf(g, err[name])
+        absmax = None
+        if shards and name in shards:
+            absmax = functools.partial(shards.absmax, name)
+        g8[name], scale[name], new_err[name] = compress_leaf(g, err[name],
+                                                             absmax)
     return g8, scale, new_err
 
 

@@ -192,7 +192,10 @@ def run_training(loop: LoopConfig, *,
     Under a process ``group`` every rank runs the loop (the same steps,
     the same injected failure); rank 0 alone writes each checkpoint (an
     async one is joined first) and every rank then waits at a barrier, so
-    a restart finds the same ``latest_step`` on every rank."""
+    a restart finds the same ``latest_step`` on every rank.  A state
+    sharded under ``RunConfig.fsdp`` is saved by every rank's call
+    (``checkpoint.ckpt.save`` gathers each sharded leaf to rank 0, which
+    writes it) and each rank restores its own rows."""
     restarts = 0
     history: list[float] = []
     seconds = {"save_seconds": [], "restore_seconds": []}
@@ -231,10 +234,12 @@ def run_training(loop: LoopConfig, *,
                 if (step + 1) % loop.ckpt_every == 0 or (
                         loop.ckpt_final and step == loop.total_steps - 1):
                     t0 = time.perf_counter()
-                    if writer and loop.ckpt_async:
+                    # a sharded state's every rank takes part in the save
+                    saves = writer or ckpt_lib.is_sharded(state)
+                    if saves and loop.ckpt_async:
                         pending = ckpt_lib.save_async(
                             loop.ckpt_dir, step, state, keep=loop.keep)
-                    elif writer:
+                    elif saves:
                         ckpt_lib.save(loop.ckpt_dir, step, state,
                                       keep=loop.keep)
                     if group is not None:

@@ -34,6 +34,24 @@ replaces the constraint with an explicit collective:
 
 With no process group (one process, as the JAX package's 1×1 mesh) the
 same structure runs and each collective is the identity.
+
+Under ``RunConfig.fsdp`` (``sync.shard``) the sharded tensors' rows are
+gathered whole before each use and the backward of that gather hands their
+gradients here (``scatter``).  In bucketed mode each repeat's go out at
+once, one ``reduce_scatter_tensor(async_op=True)`` a dtype; ``finish``
+waits, divides by the world size and writes each reduced slice into row r
+of the rank's stacked slice gradient (autograd returns zeros there: the
+gather's backward hands it nothing, so that no unfinished buffer reaches
+the slicing's backward).  Only the newest reduce-scatter is left in
+flight when the next is issued: the older ones are waited on then, so that
+their full-size send buffers are freed as the backward goes.  In barrier
+mode every sharded gradient is kept whole until the backward ends and
+reduce-scattered then, a repeat's at a time (one collective a repeat and
+dtype, each repeat's freed as the next goes out): the full gradients of
+every repeat live until the backward ends, the baseline's cost.  The replicated tensors keep
+the all-reduce.  Per step a rank puts the plan's ``2 × layer bytes``
+(``sync.plan``: a reduce-scatter and a gather) on the wire, and one more
+gather under remat, whose recompute gathers again.
 """
 from __future__ import annotations
 
@@ -41,6 +59,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.sync import shard
 
 
 class _Bucket(torch.autograd.Function):
@@ -64,16 +84,22 @@ class GradSync:
 
     ``log`` lists, in order: ``("backward", key)`` when repeat ``key``'s
     backward starts (a hook on its output), ``("issue", key)`` for each
-    bucket collective a repeat issued inside the backward, ``("end",)``
-    when ``finish`` starts (autograd has returned) and ``("after",)`` for
-    each collective issued after the backward.  ``chip_smoke.py`` and the
-    tests read it; it costs a list append per event."""
+    bucket collective a repeat issued inside the backward, ``("gather",
+    key)`` for each gather of sharded rows (in the forward and in remat's
+    recompute), ``("scatter", key)`` for each reduce-scatter of their
+    gradients issued inside the backward, ``("end",)`` when ``finish``
+    starts (autograd has returned) and ``("after",)`` for each collective
+    issued after the backward.  ``chip_smoke.py`` and the tests read it;
+    it costs a list append per event.  ``group`` is a process group or a
+    ``sync.shard.Comm``."""
 
-    def __init__(self, group: Optional[dist.ProcessGroup] = None):
-        self.group = group
-        self.world = 1 if group is None else group.size()
+    def __init__(self, group=None):
+        self.comm = shard.as_comm(group)
+        self.world = 1 if self.comm is None else self.comm.world
         self.log: list[tuple] = []
         self._pending: list[tuple] = []      # (slots, flat, work)
+        self._scattered: list[list] = []     # [slots, grads, flat, work]
+        self._deferred: list[tuple] = []     # (slots, grads), barrier mode
         self._covered: set[int] = set()      # ids of bucketed stacks
 
     # -- inside the forward ---------------------------------------------
@@ -85,6 +111,11 @@ class GradSync:
         self._covered.update(id(t) for t in stacks)
         return _Bucket.apply(self, key, slots, *(t[r] for t in stacks))
 
+    def gathered(self, key: tuple, slots: list) -> None:
+        """Note a gather of ``slots``' rows (``sync.shard.gathered``)."""
+        self._covered.update(id(t) for t, _ in slots)
+        self.log.append(("gather", key))
+
     def mark(self, x: torch.Tensor, key: tuple) -> None:
         """Log the start of repeat ``key``'s backward (``x``, its output,
         gets its gradient)."""
@@ -95,10 +126,37 @@ class GradSync:
         """Flatten ``grads`` (one dtype) into one bucket and issue its
         sum across the group: (bucket, handle), or (None, None) with no
         group."""
-        if self.group is None:
+        if self.comm is None:
             return None, None                # one process: the identity
         flat = torch.cat([g.reshape(-1) for g in grads])
-        return flat, dist.all_reduce(flat, group=self.group, async_op=True)
+        return flat, self.comm.all_reduce(flat, async_op=True)
+
+    def scatter(self, key: tuple, slots: list, grads: tuple,
+                now: bool) -> None:
+        """The whole-row gradients of ``slots`` (sharded tensors' rows,
+        gathered by ``sync.shard``): reduce-scattered at once, one
+        collective a dtype (``now``: bucketed mode), or kept whole for
+        ``finish`` (barrier mode), which issues them so in turn."""
+        if now:
+            self._reduce_scatter(slots, grads, ("scatter", key))
+        else:
+            self._deferred.append((slots, grads))
+
+    def _reduce_scatter(self, slots: list, grads: Sequence[torch.Tensor],
+                        event: tuple) -> None:
+        """Issue one reduce-scatter a dtype of ``grads`` (logged as
+        ``event``) once every earlier one has landed, so that only the
+        newest holds its send buffer."""
+        for entry in self._scattered:
+            if entry[3] is not None:
+                entry[3].wait()
+                entry[3] = None
+        for idx in _by_dtype(grads):
+            part = [grads[i] for i in idx]
+            flat, work = shard.reduce_scatter_flat(self.comm, part)
+            self._scattered.append([[slots[i] for i in idx],
+                                    [g.shape for g in part], flat, work])
+            self.log.append(event)
 
     def _issue(self, key: tuple, slots: list, grads: tuple) -> None:
         for idx in _by_dtype(grads):
@@ -113,7 +171,7 @@ class GradSync:
         buckets issued inside the backward written into their rows, every
         other gradient reduced here."""
         self.log.append(("end",))
-        grads = list(grads)
+        grads = [g.detach() for g in grads]
         where = {id(p): i for i, p in enumerate(params)}
         for slots, flat, work in self._pending:
             if work is None:
@@ -122,6 +180,17 @@ class GradSync:
             for row, piece in zip(rows, self._averaged(flat, work, rows)):
                 row.copy_(piece.view_as(row))
         self._pending = []
+        while self._deferred:                # each repeat's freed in turn
+            self._reduce_scatter(*self._deferred.pop(0), ("after",))
+        for slots, shapes, flat, work in self._scattered:
+            if work is not None:
+                work.wait()
+            flat.div_(self.world)
+            for (t, r), piece in zip(slots, shard.slices_of(flat, shapes,
+                                                            self.world)):
+                g = grads[where[id(t)]]
+                (g if r is None else g[r]).add_(piece)
+        self._scattered = []
         rest = [i for i, p in enumerate(params)
                 if id(p) not in self._covered]
         for idx in _by_dtype([grads[i] for i in rest]):

@@ -150,7 +150,8 @@ def test_default_run_keeps_jax_s_choice(reference):
     for arch, want in reference["default_run"].items():
         run, jax_run = dryrun.default_run(tconfigs.get(arch))
         assert jax_run == want, arch
-        assert (run.fsdp, run.batch_axes) == (False, "dp")
+        # the port takes JAX's fsdp; batch_axes "all" needs a model axis
+        assert (run.fsdp, run.batch_axes) == (want["fsdp"], "dp")
         assert (run.opt_8bit, run.remat, run.microbatches) == (
             want["opt_8bit"], want["remat"], want["microbatches"])
         # a rank's one row takes one microbatch
@@ -296,3 +297,40 @@ def test_peak_split_counts_the_gradients_made_by_the_peak():
                for n in ("lm_head", "final_norm"))
     assert got["peak_split"]["gradients"] == head == 65_664
     assert sum(got["peak_split"].values()) == got["peak_bytes"]
+
+
+def test_sharded_trace_counts_gathers_and_reduce_scatters():
+    """A sharded rank's train step (deepseek-7b smoke, world 2, remat,
+    bucketed): the rank holds half of each sharded tensor; its collective
+    bytes are a ring's share of the gathers (each repeat's rows twice,
+    in the forward and the recompute; the untied head once), one
+    reduce-scatter of every sharded gradient, and the all-reduce of the
+    replicated ones and the clipping norm's square: no all-reduce of
+    the sharded gradients."""
+    cfg = _smoke("deepseek-7b")
+    W = 2
+    run = RunConfig(fsdp=True, sync_mode="bucketed")
+    got = dryrun.trace_step(cfg, run, ShapeConfig("tiny_train", S, B,
+                                                  "train"), B, world=W)
+    whole = dict(Model(cfg, dtype=torch.bfloat16,
+                       device="meta").named_parameters())
+    rank = dict(Model(cfg, run, dtype=torch.bfloat16, device="meta",
+                      group=dryrun._TracedRanks(W)).named_parameters())
+
+    def nbytes(names):
+        return sum(whole[n].numel() * whole[n].element_size()
+                   for n in names)
+    sharded = [n for n in whole if rank[n].shape != whole[n].shape]
+    assert len(sharded) == 8 and "lm_head" in sharded
+    share = (W - 1) / W
+    gathered = 2 * nbytes(n for n in sharded if n != "lm_head") + nbytes(
+        ["lm_head"])
+    assert got["param_bytes"] == sum(p.numel() * p.element_size()
+                                     for p in rank.values())
+    assert got["roofline"]["coll_breakdown"] == pytest.approx({
+        "all-gather": share * gathered,
+        "reduce-scatter": share * nbytes(sharded),
+        "all-reduce": 2 * share * (nbytes(n for n in whole
+                                          if n not in sharded) + 4)})
+    assert got["coll_bytes"] == pytest.approx(
+        sum(got["roofline"]["coll_breakdown"].values()))

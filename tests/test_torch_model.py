@@ -279,12 +279,12 @@ def test_checkpoint_bridge_round_trip_keeps_mtp_and_encoder_keys(
 ])
 def test_unimplemented_run_options_raise(field, value):
     """The fields the training step reads (``remat``, ``microbatches``,
-    ``logits_fp32``, ``opt_8bit``, ``grad_compression``, ``sync_mode``)
-    build; every other one (the JAX package's GSPMD sharding) set away
-    from its default raises, naming itself."""
+    ``logits_fp32``, ``opt_8bit``, ``grad_compression``, ``sync_mode``,
+    ``fsdp``) build; every other one (the JAX package's "model" mesh
+    axis) set away from its default raises, naming itself."""
     run = dataclasses.replace(TRunConfig(), **{field: value})
     if field in ("remat", "microbatches", "logits_fp32", "opt_8bit",
-                 "grad_compression", "sync_mode"):
+                 "grad_compression", "sync_mode", "fsdp"):
         tm = TModel(tconfigs.get_smoke("deepseek-7b"), run, device="cpu")
         assert getattr(tm.run, field) == value
         return
