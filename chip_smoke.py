@@ -184,7 +184,24 @@ Phases (each raises on failure):
    measured ``max_memory_allocated``, and the traced flops printed beside
    ``train.model_flops``; then one rank's sharded step of phase 18
    (mamba2-130m, world 2, 4 rows, ``fsdp``) held so to rank 0's measured
-   peak.
+   peak;
+25. the "model" axis (``launch.mesh``): olmoe-1b-7b at full width on a
+   (1,2) grid of two gloo ranks on this card (``python3 chip_smoke.py
+   --grid-rank R --grid 1x2 ...``, each with its own timeout).  First its
+   fp32 forward, against the one-process fp32 forward run here on the
+   same draws and batch: no farther from it than the one-process plain
+   attention path is (AGREE_VS_PLAIN_ERR, in relative error and in tokens
+   whose routing parts at some layer), layer 0's top-k flips near-ties;
+   then as phase 16 trains it (bf16, remat, int8 moments, B 4 × S 2048):
+   the bytes resident after ``init_train_state`` equal to the rule's
+   arithmetic, 2 steps with finite losses, each with K1 at 8 heads (32
+   launches) and K3 at 32 experts (96), the model group's collectives as
+   ``sync.model_axis.step_log`` counts them, each rank's peak and step ms
+   printed.  Beside it, four ranks of a (2,2) grid; on both grids the
+   smoke configs of deepseek-7b, olmoe-1b-7b (both combines),
+   deepseek-v3-671b (both) and mamba2-130m, one fp32 step each (fsdp on
+   the (2,2) grid), its loss, gathered gradients and parameters after
+   AdamW within STEP_TOL of max|·| of the one-process step here.
 
 The last lines are the script's seconds (by phase, then in all), a
 ``{"kernels": [...]}`` JSON
@@ -229,10 +246,13 @@ from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
+from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models.model import SYNC_MODES  # noqa: E402
 from repro_torch.checkpoint import bridge  # noqa: E402
-from repro_torch.sync import shard  # noqa: E402
+from repro_torch.sync import model_axis, shard  # noqa: E402
 from repro_torch.runtime import LoopConfig, StepMonitor  # noqa: E402
 from repro_torch.runtime import run_training  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -2333,6 +2353,435 @@ def phase_estimate(peaks: dict[str, int], fsdp_peak: int, card: str) -> None:
         raise AssertionError(f"phase 24: estimated peaks off for {bad}")
 
 
+# ----------------------------------------------------------------------
+# the "model" axis: a data x model grid of gloo ranks (phase 25)
+# ----------------------------------------------------------------------
+# seconds each of phase 25's rank processes may take, start to end
+GRID_TIMEOUT = 420
+GRID_STEPS = 2
+# olmoe-1b-7b at full width on a (1,2) grid: 8 of 16 heads and 32 of 64
+# experts a rank
+GRID_FULL = (1, 2)
+GRID_ARCHS = ("deepseek-7b", "olmoe-1b-7b", "deepseek-v3-671b",
+              "mamba2-130m")
+GRID_B, GRID_S = 4, 16
+# The grid's forward sums each row-parallel projection's and the experts'
+# parts in another order than one process does.  That moves a router's
+# inputs by fp32 rounding, and over 16 capacity-bound MoE layers a moved
+# route moves others (through attention, and through who is dropped), so
+# the final logits are judged as phase 4 judges two paths: against the
+# one-process forward, no farther than the one-process plain attention
+# path is from it (AGREE_VS_PLAIN_ERR), in relative error and in tokens
+# whose routing parts at some layer.  Layer 0's inputs differ by the
+# arithmetic alone: there phase 11's rule holds (a token whose top-k
+# differs was a near-tie, NEAR_TIE).
+
+
+def grid_cells(sizes: tuple) -> list[tuple[str, str, dict]]:
+    """(tag, arch, RunConfig fields) of the smoke-width steps on a grid
+    of ``sizes``: each of GRID_ARCHS, the MoE ones with both combines,
+    on (2,2) under fsdp too."""
+    out = []
+    for arch in GRID_ARCHS:
+        combines = (("psum", "psum_scatter")
+                    if configs.get(arch).n_experts else ("psum",))
+        for comb in combines:
+            kw = {"moe_combine": comb}
+            if sizes == (2, 2):
+                kw["fsdp"] = True
+            out.append((f"{arch} {sizes[0]}x{sizes[1]} {comb}", arch, kw))
+    return out
+
+
+def grid_tokens(arch: str) -> torch.Tensor:
+    cfg = configs.get_smoke(arch)
+    g = torch.Generator().manual_seed(GRID_ARCHS.index(arch))
+    return torch.randint(0, cfg.vocab_size, (GRID_B, GRID_S),
+                         generator=g).cuda()
+
+
+def grid_smoke_model(arch: str, run: RunConfig, grid=None) -> Model:
+    """The fp32 smoke model from seed 1's draws on the card (a grid's
+    rank keeps its slices of the same draws)."""
+    model = Model(configs.get_smoke(arch), run, dtype=torch.float32,
+                  device="cuda", grid=grid)
+    return model.init(torch.Generator(device="cuda").manual_seed(1))
+
+
+def grid_resident_want(cfg, run: RunConfig, grid, vocab: int) -> int:
+    """The bytes a rank of ``grid`` holds after ``init_train_state`` with
+    int8 moments: each parameter's slice by the rule
+    (``launch.sharding.placement`` on its whole shape), its int8 codes and
+    its fp32 scales (a scale of a row the model group splits is the whole
+    row's: its slice drops that split), each rounded up to the
+    allocator's 512-byte blocks."""
+    def block(n: int) -> int:
+        return -(-n // 512) * 512
+    whole = Model(cfg, run, dtype=torch.bfloat16, device="meta")
+    tp, dp = grid.tp, grid.dp
+    total = 0
+    for name, p in whole.named_parameters():
+        shape = tuple(p.shape)
+        if name == "lm_head":
+            shape = shape[:-1] + (vocab,)
+        place = sharding.placement(name.split("."), shape, cfg, run, grid)
+        local = place.local(shape, tp, dp)
+        scale = place.scale().local(shape[:-1] + (1,), tp, dp)
+        total += block(math.prod(local) * p.element_size()) + 2 * (
+            block(math.prod(local)) + block(math.prod(scale) * 4))
+    return total
+
+
+def kept_experts(r: moe.Routing) -> torch.Tensor:
+    """[T, E] bool: the experts that took each token (after the capacity
+    cut)."""
+    T, E = r.ids.shape[0], r.counts.shape[0]
+    kept = torch.zeros((T, E), dtype=torch.bool, device=r.tok.device)
+    e = torch.arange(E, device=r.tok.device)[:, None].expand_as(r.tok)
+    kept[r.tok[r.valid], e[r.valid]] = True
+    return kept.cpu()
+
+
+def recorded_forward(model: Model, batch: dict) -> dict:
+    """``model.forward(batch)`` with each MoE layer's routing recorded:
+    the logits, and per layer each token's kept experts, top-k ids and
+    top-k margin, on the CPU."""
+    with torch.inference_mode(), moe.recorded_routes() as seen:
+        logits = model.forward(batch)
+        return {"logits": logits.cpu(),
+                "kept": [kept_experts(x) for x in seen],
+                "ids": [x.ids.cpu() for x in seen],
+                "margins": [x.margins.cpu() for x in seen]}
+
+
+def grid_reference(out: str) -> float:
+    """olmoe-1b-7b's one-process fp32 forward on seed 0's draws and the
+    first training batch, here, on the kernel path and on the plain
+    attention path (``recorded_forward``), saved to ``out`` for the grid's
+    rank 0."""
+    t0 = time.perf_counter()
+    r = train.FULL_RUNS[MOE_ARCH]
+    cfg = configs.get(MOE_ARCH)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, r.seq, r.batch), "cuda")
+    model = Model(cfg, r.run_config(), dtype=torch.float32, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    ref = {"kernel": recorded_forward(model, data.batch_at(0))}
+    model.run = dataclasses.replace(model.run, attn_impl="plain")
+    ref["plain"] = recorded_forward(model, data.batch_at(0))
+    torch.save(ref, f"{out}/reference.pt")
+    del model, ref
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def grid_full(grid, rank: int, out: str) -> dict:
+    """olmoe-1b-7b at full width on a rank of the (1,2) grid, as phase 16
+    trains it (bf16, remat, int8 moments, B 4 x S 2048, seed 0): the bytes
+    resident after ``init_train_state`` against the rule's arithmetic; the
+    forward's logits (rank 0: against ``grid_reference``'s); GRID_STEPS
+    training steps with each one's loss, ms, launches and the heads and
+    experts each K1 and K3 launch took, and the model group's log; the
+    peak."""
+    r = train.FULL_RUNS[MOE_ARCH]
+    cfg = configs.get(MOE_ARCH)
+    run = r.run_config()
+    data = SyntheticLM(DataConfig(cfg.vocab_size, r.seq, r.batch), "cuda")
+    # the fp32 forward on the grid, against the one-process one
+    zero_counts()
+    model = Model(cfg, run, dtype=torch.float32, device="cuda", grid=grid)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    got = recorded_forward(model, data.batch_at(0))
+    res = {"forward_launches": counts()}
+    if rank == 0:
+        res["logits"] = judge_grid_logits(got,
+                                          torch.load(f"{out}/reference.pt"))
+    del model, got
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, run, dtype=torch.bfloat16, device="cuda", grid=grid)
+    opt = r.optimizer()
+    state = train.init_train_state(
+        model, opt, run, torch.Generator(device="cuda").manual_seed(0))
+    res.update(resident=torch.cuda.memory_allocated() - base,
+               resident_want=grid_resident_want(cfg, run, grid, model.vocab))
+    shapes = {"K1": Counter(), "K3": Counter()}
+    # the heads and experts of each launch, read where the wrappers launch
+    launch_fa, launch_gmm = ops._launch_flash, ops._launch_gmm
+
+    def k1(q, *a):
+        shapes["K1"][str(q.shape[2])] += 1
+        return launch_fa(q, *a)
+
+    def k3(x, *a):
+        shapes["K3"][str(x.shape[0])] += 1
+        return launch_gmm(x, *a)
+
+    ops._launch_flash, ops._launch_gmm = k1, k3
+    step = train.make_train_step(model, opt, run, grid=grid)
+    res.update(losses=[], ms=[], launches=[], heads=[], experts=[],
+               log_ok=[])
+    want_log = {(k, str(key)): n
+                for (k, key), n in model_axis.step_log(model).items()}
+    try:
+        for s in range(GRID_STEPS):
+            zero_counts()
+            for c in shapes.values():
+                c.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, data.batch_at(s))
+            torch.cuda.synchronize()
+            res["ms"].append(1e3 * (time.perf_counter() - t0))
+            res["losses"].append(float(metrics["loss"]))
+            res["launches"].append(counts())
+            res["heads"].append(dict(shapes["K1"]))
+            res["experts"].append(dict(shapes["K3"]))
+            got = Counter((k, str(key)) for k, key in step.model_log)
+            res["log_ok"].append(dict(got) == want_log)
+            res["log"] = {f"{k} {key}": n for (k, key), n in got.items()}
+    finally:
+        ops._launch_flash, ops._launch_gmm = launch_fa, launch_gmm
+    res["peak"] = torch.cuda.max_memory_allocated() - base
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def parted(got: dict, want: dict) -> torch.Tensor:
+    """[T] bool: the tokens whose routing (top-k, or the experts that
+    kept them after the capacity cut) differs at some layer between two
+    ``recorded_forward``s."""
+    out = torch.zeros(want["ids"][0].shape[0], dtype=torch.bool)
+    for layer in range(len(want["ids"])):
+        out |= (got["ids"][layer] != want["ids"][layer]).any(dim=1)
+        out |= (got["kept"][layer] != want["kept"][layer]).any(dim=1)
+    return out
+
+
+def judge_grid_logits(got: dict, ref: dict) -> dict:
+    """The grid's fp32 forward (``recorded_forward``) against the
+    one-process kernel path's, beside the one-process plain path's
+    (``grid_reference``): relative error of the logits and tokens whose
+    routing parts at some layer, each at most AGREE_VS_PLAIN_ERR times the
+    plain path's; at layer 0 each token whose top-k differs a near-tie."""
+    kern, plain = ref["kernel"], ref["plain"]
+    g, k, p = (x["logits"].float() for x in (got, kern, plain))
+    f0 = (got["ids"][0] != kern["ids"][0]).any(dim=1)
+    margin0 = float(kern["margins"][0][f0].max()) if f0.any() else 0.0
+    res = {"tokens": g.shape[0] * g.shape[1],
+           "rel_err": rel_err(g, k), "plain_rel_err": rel_err(p, k),
+           "parted": int(parted(got, kern).sum()),
+           "plain_parted": int(parted(plain, kern).sum()),
+           "layer0_flips": int(f0.sum()), "layer0_margin": margin0,
+           "argmax_agree": float((g.argmax(-1) == k.argmax(-1))
+                                 .float().mean()),
+           "plain_argmax_agree": float((p.argmax(-1) == k.argmax(-1))
+                                       .float().mean())}
+    res["ok"] = (res["rel_err"] <= AGREE_VS_PLAIN_ERR * res["plain_rel_err"]
+                 and res["parted"] <= AGREE_VS_PLAIN_ERR
+                 * res["plain_parted"] and margin0 < NEAR_TIE)
+    return res
+
+
+def grid_smoke(grid, rank: int, sizes: tuple, out: str) -> dict:
+    """Each of ``grid_cells(sizes)``: one fp32 step of the smoke model on
+    the grid, as ``tests/test_torch_model_axis.py`` takes it on the CPU;
+    rank 0 saves the loss, the gathered gradients and the parameters after
+    AdamW for the script's process to hold to its one-process step."""
+    res = {}
+    for tag, arch, kw in grid_cells(sizes):
+        run = RunConfig(**kw)
+        model = grid_smoke_model(arch, run, grid)
+        opt = _KeepGrads(AdamW(AdamWConfig()))
+        state = {"params": model, "opt": opt.init(model)}
+        step = train.make_train_step(model, opt, run, grid=grid)
+        state, metrics = step(state, {"tokens": grid_tokens(arch)})
+        params = {k: torch.from_numpy(v)          # every rank gathers
+                  for k, v in bridge.to_flat(model).items()}
+        if rank == 0:
+            torch.save({"loss": float(metrics["loss"]), "grads": opt.grads,
+                        "params": params},
+                       f"{out}/{tag.replace(' ', '_')}.pt")
+        res[tag] = Counter(f"{k} {key}" for k, key in step.model_log)
+        del model, opt, state, step
+    return res
+
+
+def grid_worker(rank: int, sizes: tuple, init: str, out: str) -> None:
+    """One rank of phase 25's grid, on the one card: ``python3
+    chip_smoke.py --grid-rank R --grid DxM --grid-init URL --grid-dir
+    DIR``.  On the (1,2) grid the full-width olmoe-1b-7b run
+    (``grid_full``), then on either grid the smoke steps
+    (``grid_smoke``); writes ``grid<DxM>_rank<R>.json`` with its launches."""
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=math.prod(sizes),
+                            timeout=timedelta(seconds=GRID_TIMEOUT))
+    try:
+        grid = mesh_lib.make_grid(sizes)
+        zero_counts()
+        res = {}
+        if sizes == GRID_FULL:
+            res["full"] = grid_full(grid, rank, out)
+            full = Counter(res["full"]["forward_launches"])
+            for c in res["full"]["launches"]:
+                full.update(c)
+            zero_counts()
+        res["smoke"] = grid_smoke(grid, rank, sizes, out)
+        res["launches"] = counts()
+        if sizes == GRID_FULL:
+            for k, n in full.items():
+                res["launches"][k] += n
+        name = "x".join(map(str, sizes))
+        with open(f"{out}/grid{name}_rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_grid(sizes: tuple, out: str) -> tuple:
+    """Start the ranks of a grid of ``sizes`` on this card: (sizes,
+    processes, log files)."""
+    n = math.prod(sizes)
+    name = "x".join(map(str, sizes))
+    init = f"tcp://127.0.0.1:{free_port()}"
+    files = [open(f"{out}/grid{name}_rank{k}.log", "w") for k in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--grid-rank",
+         str(k), "--grid", name, "--grid-init", init, "--grid-dir", out],
+        stdout=files[k], stderr=subprocess.STDOUT, env=src_env())
+        for k in range(n)]
+    return sizes, procs, files
+
+
+def finish_grid(started: tuple, out: str) -> list[dict]:
+    """Wait for ``start_grid``'s ranks, each within GRID_TIMEOUT of the
+    start; their records."""
+    sizes, procs, files = started
+    name = "x".join(map(str, sizes))
+    try:
+        for p in procs:
+            p.wait(timeout=GRID_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * len(procs):
+        for k in range(len(procs)):
+            print(f"grid {name} rank {k} (exit {codes[k]}), last lines:")
+            print("\n".join(Path(f"{out}/grid{name}_rank{k}.log")
+                            .read_text().splitlines()[-30:]))
+        raise AssertionError(f"phase 25: a rank of the {name} grid failed "
+                             f"or hung: {codes}")
+    return [json.loads(Path(f"{out}/grid{name}_rank{k}.json").read_text())
+            for k in range(len(procs))]
+
+
+def phase_grid() -> dict[str, int]:
+    """The "model" axis (phase 25): olmoe-1b-7b at full width on a (1,2)
+    grid of two gloo ranks on this card (``grid_full``), held to the
+    one-process forward run here first (``grid_reference``); then the
+    smoke configs of GRID_ARCHS on (1,2) and (2,2) grids, one fp32 step
+    each against the one-process step here (one microbatch a data row),
+    to STEP_TOL of max|·| per tensor.  Returns the launches."""
+    t0 = time.perf_counter()
+    bad = []
+    launches = Counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as out:
+        ref_s = grid_reference(out)
+        # the (2,2) grid's four small ranks run beside the (1,2) grid's two
+        started = [start_grid(GRID_FULL, out), start_grid((2, 2), out)]
+        ranks = finish_grid(started[0], out) + finish_grid(started[1], out)
+        for rk in ranks:
+            launches.update(rk["launches"])
+        L = configs.get(MOE_ARCH).n_layers
+        want = {"K1": 2 * L, "K2": 0, "K3": 3 * 2 * L}
+        for k, rk in enumerate(ranks[:2]):
+            f = rk["full"]
+            print(f"grid {MOE_ARCH} 1x2 rank {k}: resident after "
+                  f"init_train_state {f['resident']} B, the rule's "
+                  f"arithmetic {f['resident_want']} B; peak "
+                  f"{f['peak'] / 2**30:.3f} GiB over what was allocated "
+                  f"before the model; step ms "
+                  f"{[round(t, 3) for t in f['ms']]}; losses "
+                  f"{[round(x, 5) for x in f['losses']]}; launches a step "
+                  f"{f['launches']} (want {want}); K1 heads "
+                  f"{f['heads']}, K3 experts {f['experts']} a launch; "
+                  f"model-group collectives a step {f['log']} (as "
+                  f"sync.model_axis.step_log: {f['log_ok']})")
+            if not (f["resident"] == f["resident_want"]
+                    and all(math.isfinite(x) for x in f["losses"])
+                    and all(c == want for c in f["launches"])
+                    and all(h == {"8": 2 * L} for h in f["heads"])
+                    and all(e == {"32": 6 * L} for e in f["experts"])
+                    and all(f["log_ok"])):
+                bad.append(f"full rank {k}")
+        lg = ranks[0]["full"]["logits"]
+        print(f"grid {MOE_ARCH} 1x2 fp32 logits against the one-process "
+              f"fp32 kernel path (both one-process paths taken in "
+              f"{ref_s:.1f} s), beside the one-process plain attention "
+              f"path (limit {AGREE_VS_PLAIN_ERR}x its): relative error "
+              f"{lg['rel_err']:.3e} (plain {lg['plain_rel_err']:.3e}); "
+              f"tokens whose routing parts at some layer {lg['parted']} of "
+              f"{lg['tokens']} (plain {lg['plain_parted']}); argmax "
+              f"agreement {lg['argmax_agree']:.4f} (plain "
+              f"{lg['plain_argmax_agree']:.4f}); layer 0: "
+              f"{lg['layer0_flips']} tokens whose top-k differs, largest "
+              f"one-process margin {lg['layer0_margin']:.3e} (limit "
+              f"{NEAR_TIE:.0e})")
+        if not lg["ok"]:
+            bad.append("full-width logits")
+        for sizes in (GRID_FULL, (2, 2)):
+            d = sizes[0]
+            for tag, arch, kw in grid_cells(sizes):
+                got = torch.load(f"{out}/{tag.replace(' ', '_')}.pt")
+                want_s = grid_one_process(arch, d)
+                worst = max(
+                    [worst_scaled(got["grads"][k], w, STEP_TOL)
+                     for k, w in want_s["grads"].items()]
+                    + [worst_scaled(got["params"][k], w, STEP_TOL)
+                       for k, w in want_s["params"].items()])
+                loss_ok = abs(got["loss"] - want_s["loss"]) <= 1e-5 * abs(
+                    want_s["loss"])
+                print(f"grid smoke {tag}: loss {got['loss']:.6f} (one "
+                      f"process {want_s['loss']:.6f}); gradients and "
+                      f"parameters after AdamW worst |d| / (tol max + tol "
+                      f"|x|) {worst:.4f} (tol {STEP_TOL:.0e})")
+                if not (loss_ok and worst <= 1.0):
+                    bad.append(tag)
+    if bad:
+        raise AssertionError(f"phase 25 failed: {bad}")
+    print(f"grid: phase 25 took {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
+_ONE_PROCESS: dict = {}
+
+
+def grid_one_process(arch: str, d: int) -> dict:
+    """The one-process fp32 smoke step on the card, the batch as ``d``
+    microbatches (one a data row of the grid): loss, gradients and
+    parameters after AdamW, on the CPU."""
+    if (arch, d) not in _ONE_PROCESS:
+        run = RunConfig(microbatches=d)
+        model = grid_smoke_model(arch, run)
+        opt = _KeepGrads(AdamW(AdamWConfig()))
+        state = {"params": model, "opt": opt.init(model)}
+        _, metrics = train.make_train_step(model, opt, run)(
+            state, {"tokens": grid_tokens(arch)})
+        _ONE_PROCESS[arch, d] = {
+            "loss": float(metrics["loss"]), "grads": opt.grads,
+            "params": {k: torch.from_numpy(v)
+                       for k, v in bridge.to_flat(model).items()}}
+    return _ONE_PROCESS[arch, d]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2377,6 +2826,7 @@ def main() -> int:
     timed("22-23 whisper", phase_small, ENC_ARCH)
     launches.update(timed("22-23 whisper", phase_serve_whisper))
     timed("24 estimate", phase_estimate, peaks, fsdp_peak, card)
+    launches.update(timed("25 grid", phase_grid))
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]
@@ -2403,5 +2853,15 @@ if __name__ == "__main__":
         p.add_argument("--sync-dir", required=True)
         a = p.parse_args()
         sync_worker(a.sync_rank, a.sync_init, a.sync_dir)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--grid-rank"]:
+        p = argparse.ArgumentParser()
+        p.add_argument("--grid-rank", type=int, required=True)
+        p.add_argument("--grid", required=True)
+        p.add_argument("--grid-init", required=True)
+        p.add_argument("--grid-dir", required=True)
+        a = p.parse_args()
+        grid_worker(a.grid_rank, mesh_lib.parse(a.grid), a.grid_init,
+                    a.grid_dir)
         sys.exit(0)
     sys.exit(main())

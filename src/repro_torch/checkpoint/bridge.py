@@ -9,7 +9,10 @@ the same paths ("." for "/"), so the mapping is one to one.
 A model sharded under ``RunConfig.fsdp`` (``Model.shards``) is carried
 whole all the same: ``to_flat`` gathers each sharded tensor (a collective:
 every rank of the model's group calls it) and ``from_flat`` copies each
-rank's rows of the whole array.
+rank's rows of the whole array.  On a grid of ranks (``launch.mesh``) a
+tensor split over the model group is carried whole the same way, in JAX's
+layout: an ``lm_head`` padded to a multiple of the model group's size
+(``Model.vocab``) is stored padded, as JAX stores it.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ def whole(model: nn.Module, name: str, p: torch.Tensor) -> torch.Tensor:
     """Parameter ``name`` of ``model`` whole: gathered across the ranks
     where ``model.shards`` holds it sharded (a collective), else ``p``."""
     shards = getattr(model, "shards", None)
-    return shards.whole(p) if shards and name in shards else p
+    return shards.whole(p, name) if shards and name in shards else p
 
 
 def to_flat(model: nn.Module) -> dict[str, np.ndarray]:
@@ -63,13 +66,13 @@ def from_flat(flat: Mapping[str, np.ndarray], model: nn.Module) -> nn.Module:
     for key, (name, p) in params.items():
         arr = np.asarray(flat[key])
         mine = shards and name in shards
-        shape = shards.whole_shape(p) if mine else tuple(p.shape)
+        shape = shards.whole_shape(p, name) if mine else tuple(p.shape)
         if arr.shape != shape:
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"parameter shape {shape}")
         src = torch.from_numpy(arr)
         # cast on the host, then copied
-        p.copy_(shards.mine(src) if mine else src)
+        p.copy_(shards.mine(src, name) if mine else src)
     return model
 
 

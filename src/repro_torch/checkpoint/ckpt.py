@@ -66,24 +66,34 @@ def _shards(tree: Any):
     return None
 
 
-def _leaves(tree: Any, prefix: str = "", shards=None, sharded=False
+def _leaves(tree: Any, prefix: str = "", shards=None, sharded=None
             ) -> Iterator[tuple[str, torch.Tensor]]:
     """(key, tensor) for every leaf of ``tree``, in order, uncopied; a
-    sharded one (under a dict key that ``shards`` names) gathered
-    whole."""
+    sharded one (under a dict key that ``shards`` names: ``sharded`` is
+    that parameter's name) gathered whole."""
     if isinstance(tree, nn.Module):
         for name, p in tree.named_parameters():
             yield _join(prefix, name), bridge.whole(tree, name, p)
     elif isinstance(tree, torch.Tensor):
-        yield prefix, shards.whole(tree) if sharded else tree
+        yield prefix, (shards.whole(tree, sharded, _leaf(prefix))
+                       if sharded else tree)
     elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, _join(prefix, k), shards,
-                               sharded or (shards is not None
-                                           and k in shards))
+                               sharded or _sharded(shards, k))
     else:
         raise TypeError(f"cannot checkpoint {type(tree).__name__} at "
                         f"{prefix or 'the root'}")
+
+
+def _sharded(shards, key) -> Optional[str]:
+    """``key`` where ``shards`` holds that parameter sharded."""
+    return key if shards is not None and key in shards else None
+
+
+def _leaf(prefix: str) -> str:
+    """The last key of a leaf's path ("q" or "s" under int8 moments)."""
+    return prefix.rsplit(SEP, 1)[-1]
 
 
 def is_sharded(tree: Any) -> bool:
@@ -93,7 +103,7 @@ def is_sharded(tree: Any) -> bool:
 
 def _writer(tree: Any) -> bool:
     """Whether this process writes ``tree``: always, but under sharding
-    only rank 0 of the model's group."""
+    only rank 0 of the model's group (of the world, on a grid)."""
     shards = _shards(tree)
     return shards is None or shards.comm.rank == 0
 
@@ -208,23 +218,25 @@ class _Under(Mapping):
 
 @torch.no_grad()
 def _fill(tree: Any, data, prefix: str = "", shards=None,
-          sharded=False) -> None:
+          sharded=None) -> None:
     if isinstance(tree, nn.Module):
         bridge.from_flat(_Under(data, _join(prefix, "")), tree)
     elif isinstance(tree, torch.Tensor):
         if prefix not in data:
             raise KeyError(f"checkpoint missing {prefix}")
         arr = data[prefix]
-        shape = shards.whole_shape(tree) if sharded else tuple(tree.shape)
+        leaf = _leaf(prefix)
+        shape = (shards.whole_shape(tree, sharded, leaf) if sharded
+                 else tuple(tree.shape))
         if arr.shape != shape:
             raise ValueError(f"{prefix}: checkpoint shape {arr.shape} != "
                              f"target {shape}")
         src = torch.from_numpy(arr)
-        tree.copy_(shards.mine(src) if sharded else src)
+        tree.copy_(shards.mine(src, sharded, leaf) if sharded else src)
     else:
         for k, v in tree.items():
             _fill(v, data, _join(prefix, k), shards,
-                  sharded or (shards is not None and k in shards))
+                  sharded or _sharded(shards, k))
 
 
 def restore(directory: str, step: int, target: Any) -> Any:

@@ -27,10 +27,10 @@ A FakeTensor reports its fake device, so each kernel wrapper of
 counted work is the plain version's (``PLAIN_NOTE``).  No kernel is built
 and no device is touched.
 
-The port's ranks are data-parallel; ``default_run`` takes the JAX
-package's choice of ``fsdp`` (above 5 B parameters) and keeps JAX's whole
-choice beside the port's (the batch over the data axis only: JAX's
-``batch_axes="all"`` needs its "model" axis).  A sharded cell is traced
+Without a mesh the port's ranks are data-parallel; ``default_run`` takes
+the JAX package's choice of ``fsdp`` (above 5 B parameters) and keeps
+JAX's whole choice beside the port's (the batch over the data axis only:
+JAX's ``batch_axes="all"`` needs its "model" axis).  A sharded cell is traced
 as one rank of ``world`` (``sync.shard``): the model holds the rank's
 rows, each repeat's rows are gathered into whole tensors before it runs
 (again in remat's recompute), and the gradients are reduce-scattered
@@ -40,10 +40,18 @@ would and counts its bytes.  So the peak holds one repeat's gathered
 rows and the sync's buffers.  A replicated cell is one rank without a
 process group, as before.
 
+On a grid (``--mesh 16x16``, JAX's production mesh) a cell is traced as
+rank 0 of that grid (``launch.mesh``): it holds its slices of what JAX's
+rule splits (``launch.sharding``), runs the model group's tensor and
+expert parallelism (each collective counted by a ``_TracedRanks`` of that
+group) and the data group's gradient sync, and takes JAX's
+``batch_axes``; a cell whose JAX choice is ``seq_shard`` is a skip.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
       --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 16x16
 """
 from __future__ import annotations
 
@@ -63,6 +71,8 @@ from torch.utils._pytree import tree_leaves
 from repro_torch import configs
 from repro_torch.configs.base import (ArchConfig, RunConfig, SHAPES,
                                       ShapeConfig, applicable_shapes)
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import sharding
 from repro_torch.launch.roofline import H100, Roofline
 from repro_torch.launch.specs import decode_specs, input_specs
 from repro_torch.launch.train import model_flops
@@ -98,16 +108,22 @@ _SPLIT = {"Parameter": "parameters", "Gradient": "gradients",
 
 def default_run(cfg: ArchConfig, overrides: Optional[dict] = None,
                 batch: Optional[int] = None,
-                shape: Optional[ShapeConfig] = None
+                shape: Optional[ShapeConfig] = None,
+                mesh: Optional[tuple[int, ...]] = None
                 ) -> tuple[RunConfig, dict]:
     """(the port's RunConfig, what the JAX package's ``default_run`` would
     choose).  The port takes JAX's ``fsdp``, ``opt_8bit``, ``remat`` and
     ``microbatches`` (cut to a divisor of ``batch``, the rows of one
-    rank); ``batch_axes`` stays ``"dp"``, the only value
-    ``models.model._check_run`` accepts.  For a train ``shape`` the sync
-    mode is the one ``sync.plan.plan_sync`` picks for it at 256 H100s
-    (under fsdp barrier mode keeps every repeat's whole gradients until
-    the backward ends)."""
+    rank).  Without a ``mesh`` the ranks are data-parallel only and
+    ``batch_axes`` stays ``"dp"``; with one (its sizes, e.g. ``(16,
+    16)``: a grid of ranks, ``launch.mesh``) the port takes JAX's
+    ``batch_axes`` too, and the record reports JAX's ``seq_shard`` choice
+    for ``shape`` (JAX's ``lower_cell`` turns it on where a batch spread
+    over every axis does not fill the mesh), which alone stays unported.
+    For a train
+    ``shape`` the sync mode is the one ``sync.plan.plan_sync`` picks for it
+    at 256 H100s (under fsdp barrier mode keeps every repeat's whole
+    gradients until the backward ends)."""
     n = cfg.param_counts()["total"]
     small = n < 1e9
     fsdp = n > 5e9
@@ -119,12 +135,29 @@ def default_run(cfg: ArchConfig, overrides: Optional[dict] = None,
         mb = math.gcd(mb, batch)
     run = RunConfig(fsdp=fsdp, opt_8bit=jax_run["opt_8bit"], remat=True,
                     microbatches=mb)
+    if mesh is not None:
+        run = dataclasses.replace(run, batch_axes=jax_run["batch_axes"])
+        if shape is not None:
+            jax_run["seq_shard"] = (jax_run["batch_axes"] == "all"
+                                    and shape.global_batch
+                                    % math.prod(mesh) != 0)
     if shape is not None and shape.kind == "train":
         run = dataclasses.replace(
             run, sync_mode=plan_sync(cfg, shape, chips=WORLD).mode)
     if overrides:
         run = dataclasses.replace(run, **overrides)
     return run, jax_run
+
+
+def rank_batch(global_batch: int, mesh: tuple[int, ...],
+               run: RunConfig) -> int:
+    """The rows one rank of a grid of ``mesh`` takes: the batch rule's
+    (``launch.sharding.batch_spec``: the largest prefix of the data axes,
+    every axis under ``batch_axes="all"``, that divides it)."""
+    grid = mesh_lib.stand_in(mesh)
+    spec = sharding.batch_spec((global_batch,), grid, run)
+    return global_batch // math.prod(
+        grid.shape[a] for a in sharding.axes_of(spec[0]))
 
 
 def _bytes_mode():
@@ -180,11 +213,12 @@ class _Done:
 
 
 class _TracedRanks(shard.Comm):
-    """Rank 0 of ``world`` data-parallel ranks in a trace: each collective
-    leaves its output as allocated (nothing is communicated) and adds the
-    bytes a ring puts on one rank's link, by kind, to ``bytes``."""
+    """Rank 0 of ``world`` ranks in a trace (whatever ``rank`` a grid's
+    stand-in asks for): each collective leaves its output as allocated
+    (nothing is communicated) and adds the bytes a ring puts on one rank's
+    link, by kind, to ``bytes``."""
 
-    def __init__(self, world: int):
+    def __init__(self, world: int, rank: int = 0):
         self.group, self.world, self.rank = None, world, 0
         self.bytes: dict[str, float] = {}
 
@@ -212,23 +246,41 @@ def _nbytes(tensors) -> int:
 def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
                batch: int, *, world: int = 1,
                optimizer: Optional[AdamW] = None,
-               text_only: bool = False) -> dict:
+               text_only: bool = False,
+               mesh: Optional[tuple[int, ...]] = None) -> dict:
     """Trace one step of ``shape.kind`` for one rank of ``world`` taking
     ``batch`` rows, in bf16 on fake tensors, and measure it.  ``optimizer``
     (train) defaults to ``AdamW`` with ``run.opt_8bit`` moments;
     ``text_only`` feeds tokens alone, as ``data.SyntheticLM`` does, with no
     frame or vision embeddings.  Under ``run.fsdp`` the rank is rank 0 of
     ``world`` (``_TracedRanks``): its rows of the sharded tensors, their
-    gathers and a ``GradSync`` in ``run.sync_mode``."""
+    gathers and a ``GradSync`` in ``run.sync_mode``.
+
+    With ``mesh`` (a grid's sizes, ``launch.mesh``) the rank is rank 0 of
+    that grid, each of its groups a ``_TracedRanks``: its slices of every
+    tensor JAX's rule splits, the model group's collectives (counted by
+    kind and, in ``model_collectives``, by what they serve, as
+    ``launch.train``'s ``model_log`` records them) and the data group's
+    ``GradSync``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
 
     t0 = time.perf_counter()
-    ranks = _TracedRanks(world) if run.fsdp else None
+    grid = None
+    if mesh is not None:
+        grid = mesh_lib.stand_in(mesh, comm=_TracedRanks)
+        grid.model.log = []
+        ranks = grid.world if run.batch_axes == "all" else grid.data
+    else:
+        ranks = _TracedRanks(world) if run.fsdp else None
     with FakeTensorMode():
-        model = Model(cfg, run, dtype=torch.bfloat16, device="cpu",
-                      group=ranks)
+        if grid is not None:
+            model = Model(cfg, run, dtype=torch.bfloat16, device="cpu",
+                          grid=grid)
+        else:
+            model = Model(cfg, run, dtype=torch.bfloat16, device="cpu",
+                          group=ranks)
         params = list(model.parameters())
         state: dict = {}
         if shape.kind == "train":
@@ -279,7 +331,11 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
                     model.decode_step(cache, tokens, index, enc_out=enc_out)
         peak = mem.get_tracker_snapshot("peak")[torch.device("cpu")]
     param_bytes = _nbytes(params)
-    if ranks is not None:
+    if grid is not None:
+        breakdown = dict(ranks.bytes)
+        for kind, n in grid.model.bytes.items():
+            breakdown[f"model {kind}"] = n
+    elif ranks is not None:
         breakdown = dict(ranks.bytes)
     else:
         # GradSync all-reduces every gradient in its parameter's dtype; a
@@ -294,30 +350,54 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
                     coll_bytes=coll, coll_breakdown=breakdown,
                     chips=1, model_flops=mf)
     split = {name: peak.get(key, 0) for key, name in _SPLIT.items()}
+    extra = {}
+    if grid is not None:
+        counts: dict[str, int] = {}
+        for kind, key in grid.model.log:
+            name = f"{kind} {key}"
+            counts[name] = counts.get(name, 0) + 1
+        extra["model_collectives"] = counts
     return {"flops": roof.flops, "hbm_bytes": roof.hbm_bytes,
             "coll_bytes": coll, "peak_bytes": peak["Total"],
             "peak_split": split, "param_bytes": param_bytes,
             "state_bytes": state_bytes,
             "fits_80GB": peak["Total"] <= H100.hbm_bytes,
             "roofline": roof.to_dict(),
-            "trace_s": time.perf_counter() - t0}
+            "trace_s": time.perf_counter() - t0, **extra}
 
 
 def trace_cell(arch: str, shape_name: str, *, world: int = WORLD,
                run_overrides: Optional[dict] = None,
-               cfg: Optional[ArchConfig] = None) -> dict:
+               cfg: Optional[ArchConfig] = None,
+               mesh: Optional[tuple[int, ...]] = None) -> dict:
     """The counterpart of the JAX package's ``lower_cell``: one rank's
-    step of the cell at ``world`` data-parallel ranks, measured, as a
-    record.  ``cfg`` replaces the arch's config (a smoke config in the
-    tests)."""
+    step of the cell at ``world`` data-parallel ranks, or on a grid of
+    ``mesh`` (its sizes: ``(16, 16)`` is JAX's production mesh), measured,
+    as a record.  A cell whose JAX choice on ``mesh`` needs ``seq_shard``
+    (unported) is a skip record naming it.  ``cfg`` replaces the arch's
+    config (a smoke config in the tests)."""
     cfg = cfg or configs.get(arch)
     shape = SHAPES[shape_name]
-    batch = max(1, shape.global_batch // world)
-    run, jax_run = default_run(cfg, run_overrides, batch, shape)
-    m = trace_step(cfg, run, shape, batch, world=world)
+    if mesh is not None:
+        world = math.prod(mesh)
+        run, jax_run = default_run(cfg, run_overrides, shape=shape,
+                                   mesh=mesh)
+        if jax_run["seq_shard"]:
+            return {"arch": arch, "shape": shape_name, "ok": False,
+                    "mesh": "x".join(map(str, mesh)), "jax_run": jax_run,
+                    "skipped": "JAX's choice here is seq_shard (sequence "
+                               "parallelism over \"model\"), which the "
+                               "port does not have"}
+        batch = rank_batch(shape.global_batch, mesh, run)
+        run, _ = default_run(cfg, run_overrides, batch, shape, mesh)
+    else:
+        batch = max(1, shape.global_batch // world)
+        run, jax_run = default_run(cfg, run_overrides, batch, shape)
+    m = trace_step(cfg, run, shape, batch, world=world, mesh=mesh)
+    where = {"mesh": "x".join(map(str, mesh))} if mesh is not None else {}
     return {
         "arch": arch, "shape": shape_name, "kind": shape.kind,
-        "world": world, "global_batch": shape.global_batch,
+        "world": world, **where, "global_batch": shape.global_batch,
         "batch_per_rank": batch, "seq_len": shape.seq_len,
         "dtype": "bfloat16", "hardware": H100.name,
         "run": {f.name: getattr(run, f.name)
@@ -337,12 +417,13 @@ def results_path(out: Path, tag: str) -> Path:
 
 
 def run_cells(archs, shapes, *, world: int = WORLD, tag: str = "baseline",
-              out: Path = RESULTS, run_overrides: Optional[dict] = None
-              ) -> dict:
+              out: Path = RESULTS, run_overrides: Optional[dict] = None,
+              mesh: Optional[tuple[int, ...]] = None) -> dict:
     """Trace every applicable (arch × shape) cell, record a skip for
     ``long_500k`` on quadratic archs and an error for a cell that raised,
-    and write the records, keyed ``arch|shape|w<world>``, to
-    ``dryrun_torch_<tag>.json`` under ``out`` after each cell."""
+    and write the records, keyed ``arch|shape|w<world>`` (on a ``mesh``:
+    ``arch|shape|<d>x<m>``), to ``dryrun_torch_<tag>.json`` under ``out``
+    after each cell."""
     path = results_path(out, tag)
     path.parent.mkdir(parents=True, exist_ok=True)
     done = json.loads(path.read_text()) if path.exists() else {}
@@ -354,11 +435,16 @@ def run_cells(archs, shapes, *, world: int = WORLD, tag: str = "baseline",
                     "arch": arch, "shape": shape_name, "ok": False,
                     "skipped": "long_500k needs sub-quadratic attention"}
                 continue
-            key = f"{arch}|{shape_name}|w{world}"
+            key = f"{arch}|{shape_name}|" + (
+                "x".join(map(str, mesh)) if mesh else f"w{world}")
             print(f"[trace] {key} ...", flush=True)
             try:
                 rec = trace_cell(arch, shape_name, world=world,
-                                 run_overrides=run_overrides)
+                                 run_overrides=run_overrides, mesh=mesh)
+                if "skipped" in rec:
+                    print(f"[skip] {key}: {rec['skipped']}", flush=True)
+                    done[key] = rec
+                    continue
                 roof = rec["roofline"]
                 bound = max(roof[k] for k in ("compute_s", "memory_s",
                                               "collective_s"))
@@ -389,6 +475,9 @@ def main(argv=None) -> int:
                         "--arch or --shape)")
     p.add_argument("--world", type=int, default=WORLD,
                    help="data-parallel ranks the global batch is split over")
+    p.add_argument("--mesh", default=None,
+                   help="DxM (or PxDxM): trace a rank of that grid, as "
+                        "JAX's mesh (16x16 is its production mesh)")
     p.add_argument("--set", action="append", default=[],
                    help="RunConfig override, e.g. --set opt_8bit=True")
     p.add_argument("--tag", default="baseline")
@@ -404,8 +493,10 @@ def main(argv=None) -> int:
     archs = [args.arch] if args.arch and not args.all \
         else sorted(configs.ARCHS)
     shapes = [args.shape] if args.shape and not args.all else list(SHAPES)
+    mesh = mesh_lib.parse(args.mesh) if args.mesh else None
     recs = run_cells(archs, shapes, world=args.world, tag=args.tag,
-                     out=Path(args.out), run_overrides=overrides or None)
+                     out=Path(args.out), run_overrides=overrides or None,
+                     mesh=mesh)
     print(f"wrote {results_path(Path(args.out), args.tag)}")
     return 0 if all(r.get("ok") or "skipped" in r
                     for r in recs.values()) else 1

@@ -25,8 +25,12 @@ between them from the step's MXDAG.  One process is a world of one.
 Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) each rank
 runs on ``cuda:<LOCAL_RANK>`` with NCCL, or on the CPU with gloo, and
 takes its ``B / world`` rows of every global batch; rank 0 prints and
-writes the checkpoints.  JAX's ``--mesh`` (GSPMD over a device mesh) has
-no counterpart: the port is data-parallel only.
+writes the checkpoints.  ``--mesh DxM``, as JAX's, lays the ranks on a
+data × model grid (``launch.mesh``; D·M must be ``WORLD_SIZE``): each
+data row of M ranks takes ``B / D`` rows and splits the model over its
+ranks as JAX's rule does (``launch.sharding``)::
+
+    torchrun --nproc_per_node=2 -m repro_torch.launch.train --mesh 1x2
 
 ``RunConfig.fsdp`` (``sync.shard``) shards the parameters, their
 gradients, the moments and the error accumulator over the ranks of the
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import tempfile
 import time
@@ -50,6 +55,7 @@ from repro_torch import configs
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig, RunConfig, ShapeConfig
 from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import Model
 from repro_torch.optim import AdamW, AdamWConfig, compression, \
     cosine_schedule
@@ -138,7 +144,8 @@ def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
 
 
 def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
-                    group: Optional[dist.ProcessGroup] = None):
+                    group: Optional[dist.ProcessGroup] = None, *,
+                    grid=None):
     """``train_step(state, batch) -> (state, metrics)`` over the
     data-parallel ranks of ``group`` (None: one process).  Each rank takes
     its contiguous ``B / world`` rows of the global ``batch``; its
@@ -150,17 +157,35 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
     when each collective was issued.  Under ``run.fsdp`` the model must be
     built over ``group``: its sharded gradients are reduce-scattered into
     the rank's rows, and compression and the optimizer update those
-    rows."""
+    rows.
+
+    ``grid`` (a ``launch.mesh.Grid``, in place of ``group``): the model
+    must be built on it.  The batch's rows split over its data group (its
+    world under ``batch_axes="all"``), and the ``GradSync`` runs over that
+    group only; the model group's collectives (tensor and expert
+    parallelism, gathers at use) run inside the forward and backward, and
+    ``train_step.model_log`` holds the last call's, as ``(kind, key)``."""
     names = [name for name, _ in model.named_parameters()]
-    rank, world = (0, 1) if group is None else (group.rank(), group.size())
-    if run.fsdp != model.run.fsdp or (run.fsdp
-                                      and not model.shards.over(group)):
+    if grid is not None or model.grid is not None:
+        if model.grid is not grid or group is not None:
+            raise ValueError("grid: build the Model on the grid that "
+                             "make_train_step takes, with no group")
+        if run != model.run:
+            raise ValueError("grid: step with the Model's RunConfig")
+        comm = model.data_comm
+        group = comm.group
+    elif run.fsdp != model.run.fsdp or (run.fsdp
+                                        and not model.shards.over(group)):
         raise ValueError("fsdp: build the Model with the RunConfig and "
                          "over the process group that make_train_step "
                          "takes")
+    else:
+        comm = group
+    rank, world = (0, 1) if group is None else (group.rank(), group.size())
+    model_log = model.tp.comm.log if model.tp is not None else None
 
     def grad_fn(params: Model, batch: dict):
-        sync = overlap.GradSync(group)
+        sync = overlap.GradSync(comm)
         train_step.syncs.append(sync)
         loss, metrics = params.loss(batch, sync)
         # a parameter the batch does not reach (internvl2's vis_proj on
@@ -206,8 +231,12 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
         b = B // world
         batch = {key: x[rank * b:(rank + 1) * b] for key, x in batch.items()}
         train_step.syncs = []
+        if model_log is not None:
+            del model_log[:]
         grads, metrics = compute_grads(state["params"], batch)
         metrics = overlap.all_mean(metrics, group)
+        if model_log is not None:
+            train_step.model_log = list(model_log)
 
         new_state = dict(state)
         if run.grad_compression:
@@ -221,6 +250,7 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
         return new_state, metrics
 
     train_step.syncs = []
+    train_step.model_log = []
     return train_step
 
 
@@ -229,9 +259,9 @@ def init_train_state(model: Model, optimizer: AdamW, run: RunConfig,
     """Fill ``model`` from ``generator`` and pair it with fresh optimizer
     state: ``{"params": model, "opt": {"step", "m", "v"}}``, and a zero
     error accumulator ``"err"`` under ``run.grad_compression``.  Under
-    ``run.fsdp`` each rank draws every tensor whole and keeps its rows
-    (``Model.init``), one repeat's tensor at a time, so that the state is
-    the replicated run's, sliced."""
+    ``run.fsdp``, or on a grid, each rank draws every tensor whole and
+    keeps its slice (``Model.init``), one repeat's tensor at a time, so
+    that the state is the one-process run's, sliced."""
     model.init(generator)
     state = {"params": model, "opt": optimizer.init(model)}
     if run.grad_compression:
@@ -255,11 +285,19 @@ def main(argv: Optional[list[str]] = None) -> dict:
     p.add_argument("--sync-mode", default="bucketed",
                    choices=["bucketed", "barrier"])
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--mesh", default=None,
+                   help="DxM: the ranks as a data x model grid, as JAX's "
+                        "--mesh (D*M must be the world's size; default: "
+                        "every rank a data rank)")
     args = p.parse_args(argv)
 
     dev = _device.resolve(args.device)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    rank, group = 0, None
+    sizes = mesh_lib.parse(args.mesh) if args.mesh else None
+    if sizes is not None and math.prod(sizes) != world:
+        raise ValueError(f"--mesh {args.mesh} needs {math.prod(sizes)} "
+                         f"ranks; WORLD_SIZE is {world}")
+    rank, group, grid = 0, None, None
     if world > 1:
         rank = int(os.environ["RANK"])
         if dev.type == "cuda":
@@ -270,19 +308,24 @@ def main(argv: Optional[list[str]] = None) -> dict:
         else:
             dist.init_process_group("gloo", rank=rank, world_size=world)
         group = dist.group.WORLD
+        if sizes is not None:
+            grid = mesh_lib.make_grid(sizes, group)
     try:
-        return _train(args, dev, rank, group)
+        return _train(args, dev, rank, group, grid)
     finally:
         if group is not None:
             dist.destroy_process_group()
 
 
 def _train(args, dev: torch.device, rank: int,
-           group: Optional[dist.ProcessGroup]) -> dict:
+           group: Optional[dist.ProcessGroup], grid=None) -> dict:
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
     run = RunConfig(sync_mode=args.sync_mode, remat=True)
-    model = Model(cfg, run, device=dev, group=group)
+    if grid is not None:
+        model = Model(cfg, run, device=dev, grid=grid)
+    else:
+        model = Model(cfg, run, device=dev, group=group)
     opt = cli_optimizer(args.steps, args.lr)
 
     data = SyntheticLM(DataConfig(
@@ -291,7 +334,8 @@ def _train(args, dev: torch.device, rank: int,
 
     from repro_torch.runtime import LoopConfig, StepMonitor, run_training
 
-    step_fn = make_train_step(model, opt, run, group)
+    step_fn = (make_train_step(model, opt, run, grid=grid) if grid is not None
+               else make_train_step(model, opt, run, group))
     monitor = StepMonitor()
     world = 1 if group is None else group.size()
 
@@ -312,8 +356,9 @@ def _train(args, dev: torch.device, rank: int,
         group=group)
     dt = time.monotonic() - t0
     if rank == 0:
+        layout = f" as a {args.mesh} grid" if grid is not None else ""
         print(f"done: {summary['final_step'] + 1} steps in {dt:.1f}s on "
-              f"{world} x {dev}, sync {run.sync_mode}, "
+              f"{world} x {dev}{layout}, sync {run.sync_mode}, "
               f"restarts={summary['restarts']}, "
               f"loss {summary['loss_history'][0]:.3f} -> "
               f"{summary['loss_history'][-1]:.3f}")

@@ -208,17 +208,21 @@ def mla_init(generator: torch.Generator, cfg: ArchConfig, *,
             for name, (shape, scale) in mla_shapes(cfg).items()}
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _mla_q(p: Params, x: torch.Tensor, cfg: ArchConfig,
-           positions: torch.Tensor):
+           positions: torch.Tensor, enter=_same):
     """(qn [B,S,H,nope], qr [B,S,H,rope] with RoPE applied)."""
     B, S, _ = x.shape
     H = cfg.n_heads
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
         cq = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
-        q = (cq @ p["wq_b"]).reshape(B, S, H, nope + rope_d)
+        q = (enter(cq) @ p["wq_b"]).reshape(B, S, H, nope + rope_d)
     else:
-        q = (x @ p["wq"]).reshape(B, S, H, nope + rope_d)
+        q = (enter(x) @ p["wq"]).reshape(B, S, H, nope + rope_d)
     qn, qr = q[..., :nope], q[..., nope:]
     return qn, apply_rope(qr, positions, cfg.rope_theta)
 
@@ -263,7 +267,7 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[dict[str, torch.Tensor]] = None,
               cache_index: Optional[int] = None,
-              impl: str = "kernel"):
+              impl: str = "kernel", enter=None):
     """Returns (out, cache).  The cache holds the *compressed* latents:
     {"ckv": [B,Tmax,kv_lora], "kr": [B,Tmax,rope_d]}, written in place at
     rows ``cache_index .. cache_index+S`` (a Python int).
@@ -272,7 +276,15 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     "kernel" path).  A cached call at index 0 (one-call prefill) writes
     the latents and runs the same naive path over them, where the JAX
     package runs its absorbed path over the S tokens: the same function.
-    At index > 0 the absorbed decode runs in the latent space."""
+    At index > 0 the absorbed decode runs in the latent space.
+
+    On a grid's model group ``p`` holds this rank's heads (``wq_b`` or
+    ``wq``, ``wkv_b`` and ``wo``'s rows) and ``cfg`` their count; the
+    latents and the low-rank query are the whole model's, and ``enter``
+    (``sync.model_axis.Tp.enter``) takes each into the heads' work, so
+    that its gradient sums the ranks' parts.  ``out`` is then this
+    rank's part of the projection, for the caller to combine."""
+    enter = enter or _same
     B, S, _ = x.shape
     H = cfg.n_heads
     nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -284,7 +296,7 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         pos = positions
     else:
         pos = torch.arange(S, device=x.device)
-    qn, qr = _mla_q(p, x, cfg, pos)
+    qn, qr = _mla_q(p, x, cfg, pos, enter)
 
     kv_a = x @ p["wkv_a"]
     ckv = rmsnorm(p["kv_norm"], kv_a[..., :kl], cfg.norm_eps)
@@ -294,8 +306,8 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     wk_b, wv_b = wkv_b[..., :nope], wkv_b[..., nope:]
 
     if cache is None:
-        out = _mla_naive(qn, qr, ckv, kr, wk_b, wv_b, positions=pos,
-                         impl=impl)
+        out = _mla_naive(qn, qr, enter(ckv), enter(kr), wk_b, wv_b,
+                         positions=pos, impl=impl)
         return out.reshape(B, S, H * vd) @ p["wo"], None
 
     idx = int(cache_index)
@@ -305,8 +317,8 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     cache["ckv"][:, idx:idx + S] = ckv
     cache["kr"][:, idx:idx + S] = kr
     if idx == 0:
-        out = _mla_naive(qn, qr, cache["ckv"][:, :S].to(x.dtype),
-                         cache["kr"][:, :S].to(x.dtype), wk_b, wv_b,
+        out = _mla_naive(qn, qr, enter(cache["ckv"][:, :S].to(x.dtype)),
+                         enter(cache["kr"][:, :S].to(x.dtype)), wk_b, wv_b,
                          positions=pos, impl=impl)
     else:
         out = _mla_absorbed(qn, qr, cache["ckv"], cache["kr"], wk_b, wv_b,

@@ -12,6 +12,11 @@ model), Mamba2 blocks (mamba2-130m), MoE FFN blocks on one device
 the multi-token-prediction head (deepseek-v3), and an encoder whose
 states the decoder blocks cross-attend to (whisper).
 
+Built on a grid of ranks (``Model(..., grid=)``, ``launch.mesh``), a rank
+holds its slices of what the JAX package's sharding rule splits
+(``launch.sharding``) and runs tensor and expert parallelism over the
+grid's model group (``sync.model_axis``), as JAX's model runs on a mesh.
+
 The Model exposes:
 - ``init(generator)``               → fills the parameters, returns self
 - ``loss(batch)``                   → (scalar loss, metrics) for train_step
@@ -39,7 +44,8 @@ from repro_torch.models.layers import (
     cross_entropy, dense_init, embed_init, mlp, mlp_init, mlp_shapes,
     rmsnorm,
 )
-from repro_torch.sync import shard
+from repro_torch.launch import sharding
+from repro_torch.sync import model_axis, shard
 
 
 # ----------------------------------------------------------------------
@@ -101,29 +107,41 @@ def derive_segments(cfg: ArchConfig, *, cross: bool = False,
 
 # RunConfig fields the port reads (``opt_8bit`` and ``grad_compression``
 # in ``launch.train``; ``fsdp`` shards the parameters over the
-# data-parallel ranks, ``sync.shard``).  The others (``batch_axes``,
-# ``moe_combine``, ``seq_shard``) place work on the JAX package's "model"
-# mesh axis (batch over every axis, the MoE combine's reduction, sequence
-# parallelism), which the port, one process a card with data parallelism
-# by ``torch.distributed``, does not have
+# data-parallel ranks, ``sync.shard``).  ``batch_axes`` and
+# ``moe_combine`` place work on the JAX package's "model" mesh axis (the
+# batch over every axis, the MoE combine's reduction): the port reads them
+# on a grid of ranks (``launch.mesh``), whose model group is that axis.
+# ``seq_shard`` (sequence parallelism over "model") is not ported
 _READ = ("attn_impl", "ssm_chunk", "remat", "microbatches", "logits_fp32",
          "opt_8bit", "grad_compression", "sync_mode", "fsdp")
+_ON_A_GRID = ("batch_axes", "moe_combine")
 SYNC_MODES = ("barrier", "bucketed")
+BATCH_AXES = ("dp", "all")
 
 
-def _check_run(run: RunConfig) -> None:
+def _check_run(run: RunConfig, grid=None) -> None:
     """Any field the port does not read, set away from its default, raises
-    rather than be ignored without a word."""
+    rather than be ignored without a word: ``batch_axes`` and
+    ``moe_combine`` without a ``grid`` (they need its model group), and
+    ``seq_shard`` always."""
     if run.sync_mode not in SYNC_MODES:
         raise ValueError(f"sync_mode {run.sync_mode!r}: want one of "
                          f"{SYNC_MODES}")
+    if run.batch_axes not in BATCH_AXES:
+        raise ValueError(f"batch_axes {run.batch_axes!r}: want one of "
+                         f"{BATCH_AXES}")
+    if run.moe_combine not in model_axis.COMBINES:
+        raise ValueError(f"moe_combine {run.moe_combine!r}: want one of "
+                         f"{model_axis.COMBINES}")
+    read = _READ + (_ON_A_GRID if grid is not None else ())
     unread = [f.name for f in dataclasses.fields(run)
-              if f.name not in _READ and getattr(run, f.name) != f.default]
+              if f.name not in read and getattr(run, f.name) != f.default]
     if unread:
         raise NotImplementedError(
             f"RunConfig fields {unread} need the JAX package's \"model\" "
-            f"mesh axis, which the port (data-parallel ranks only) does "
-            f"not have")
+            f"mesh axis: batch_axes and moe_combine are read on a grid of "
+            f"ranks (Model(..., grid=launch.mesh.make_grid(...))); "
+            f"seq_shard is not ported")
 
 
 def _leaves(tree: dict) -> list:
@@ -141,30 +159,77 @@ def _rebuild(tree: dict, leaves) -> dict:
 # ----------------------------------------------------------------------
 # parameters
 # ----------------------------------------------------------------------
+_Place = sharding.Placement
+_WHOLE = sharding.Placement()
+
+
+class _Layout:
+    """Where a model's ranks keep their slices: ``place(names, shape)``
+    gives a tensor's ``sharding.Placement`` (the data group's under
+    ``RunConfig.fsdp``, and the model group's on a grid), ``local`` its
+    shape on this rank and ``slice`` this rank's slice of a whole
+    tensor.  One process: every tensor whole."""
+
+    def __init__(self, cfg: ArchConfig, run: RunConfig, grid,
+                 data: Optional[shard.Comm], model: Optional[shard.Comm]):
+        self.cfg, self.run, self.grid = cfg, run, grid
+        self.data, self.model = data, model
+
+    def place(self, names, shape) -> sharding.Placement:
+        if self.grid is not None:
+            return sharding.placement(names, shape, self.cfg, self.run,
+                                      self.grid)
+        if self.data is not None and shard.shard_axis(
+                names, shape, self.data.world) is not None:
+            return _Place(data=True)
+        return _WHOLE
+
+    def local(self, place, shape) -> tuple[int, ...]:
+        return place.local(shape, self.model.world if self.model else 1,
+                           self.data.world if self.data else 1)
+
+    def slice(self, place, full: torch.Tensor) -> torch.Tensor:
+        if place.model is not None:
+            full = shard.mine(self.model, full, place.model)
+        return shard.mine(self.data, full) if place.data else full
+
+
 class _Block(nn.Module):
     """One pattern position of a segment, every tensor stacked [R, ...];
     with ``repeats=None`` one block, unstacked (the MTP block).
 
     Parameter names follow the JAX pytree (``ln1``, ``attn.wq``, ...), so
-    ``named_parameters`` maps onto the checkpoint keys.  Over a ``comm``
-    (``RunConfig.fsdp``) each tensor that ``sync.shard`` shards holds this
-    rank's rows; ``sharded`` names them (``attn.wq``, ...)."""
+    ``named_parameters`` maps onto the checkpoint keys.  Over a
+    ``layout`` that splits tensors (``RunConfig.fsdp``, a grid) each such
+    tensor holds this rank's slice; ``placed`` names them (``attn.wq``,
+    ...) with their placements.
+
+    On a grid's model group of ``tp`` ranks the block runs each part one
+    of two ways.  Where JAX's spec splits it head- or hidden-aligned it
+    runs on its slice: ``tp_attn`` (local query and KV heads: column-
+    parallel ``wq``/``wk``/``wv`` or MLA's ``wq_b``/``wkv_b``, row-parallel
+    ``wo``), ``tp_mlp`` (column-parallel ``w_in``/``w_gate``, row-parallel
+    ``w_out``), ``ep`` (the local experts) and ``tp_shared`` (the shared
+    expert, as the MLP).  Any other split tensor is gathered at use
+    (``at_use``: local name → its model axis), as MLA's ``wq_a``/
+    ``wkv_a`` and every Mamba2 tensor are."""
 
     def __init__(self, spec: BlockSpec, cfg: ArchConfig,
                  repeats: Optional[int], dtype: torch.dtype,
-                 device: torch.device, comm: Optional[shard.Comm] = None):
+                 device: torch.device, layout: Optional[_Layout] = None):
         super().__init__()
         self.cfg = cfg
-        self.comm = comm
-        self.sharded: set[str] = set()
+        self.layout = layout
+        self.placed: dict[str, sharding.Placement] = {}
         lead = () if repeats is None else (repeats,)
 
         def empty(*shape, dtype=dtype, name=None):
             shape = lead + shape
-            if comm is not None and name is not None and shard.shard_axis(
-                    name.split("."), shape, comm.world) is not None:
-                self.sharded.add(name)
-                shape = shard.local_shape(name.split("."), shape, comm.world)
+            if layout is not None and name is not None:
+                place = layout.place(name.split("."), shape)
+                if place:
+                    self.placed[name] = place
+                    shape = layout.local(place, shape)
             return nn.Parameter(torch.empty(shape, dtype=dtype,
                                             device=device))
 
@@ -180,7 +245,7 @@ class _Block(nn.Module):
                             name=f"{group}.{name}")
                 for name, shape in shapes.items()})
 
-        self.ln1 = empty(cfg.d_model)
+        self.ln1 = empty(cfg.d_model, name="ln1")
         if spec.mixer == "attn":
             self.attn = stacked("attn", attn.mla_shapes(cfg)
                                 if cfg.attn_type == "mla"
@@ -188,23 +253,80 @@ class _Block(nn.Module):
         else:
             self.ssm = with_fp32("ssm", ssm.ssm_shapes(cfg), ssm.FP32_PARAMS)
         if spec.cross:
-            self.ln_x = empty(cfg.d_model)
+            self.ln_x = empty(cfg.d_model, name="ln_x")
             self.xattn = stacked("xattn", attn.gqa_shapes(cfg))
         if spec.ffn == "dense":
-            self.ln2 = empty(cfg.d_model)
+            self.ln2 = empty(cfg.d_model, name="ln2")
             self.mlp = stacked("mlp", mlp_shapes(cfg.d_model, cfg.d_ff,
                                                  cfg.mlp_type))
         elif spec.ffn == "moe":
-            self.ln2 = empty(cfg.d_model)
+            self.ln2 = empty(cfg.d_model, name="ln2")
             self.moe = with_fp32("moe", moe.moe_shapes(cfg), moe.FP32_PARAMS)
+        self._plan_model_axis()
+
+    def _plan_model_axis(self) -> None:
+        """Which parts run on their slice, which gather at use."""
+        cfg, placed = self.cfg, self.placed
+        layout = self.layout
+        tp = layout.model.world if layout and layout.model else 1
+        self.tp_attn = self.tp_xattn = self.tp_mlp = False
+        self.ep = self.tp_shared = False
+        self.local_cfg = cfg
+        if tp == 1:
+            self.at_use: dict[str, int] = {}
+            return
+
+        def on(group, want: dict) -> bool:
+            return all(name in getattr(self, group)
+                       and placed.get(f"{group}.{name}", _WHOLE).model == ax
+                       for name, ax in want.items())
+
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        gqa = {"wq": -1, "wk": -1, "wv": -1, "wo": -2}
+        if hasattr(self, "attn"):
+            if cfg.attn_type == "mla":
+                q = "wq_b" if cfg.q_lora_rank else "wq"
+                self.tp_attn = H % tp == 0 and on(
+                    "attn", {q: -1, "wkv_b": -1, "wo": -2})
+            else:
+                self.tp_attn = H % tp == 0 and K % tp == 0 and on("attn",
+                                                                  gqa)
+        if hasattr(self, "xattn"):
+            self.tp_xattn = H % tp == 0 and K % tp == 0 and on("xattn", gqa)
+        if self.tp_attn or self.tp_xattn:
+            self.local_cfg = dataclasses.replace(
+                self.local_cfg, n_heads=H // tp,
+                n_kv_heads=K // tp if cfg.attn_type != "mla" else K)
+        if hasattr(self, "mlp"):
+            self.tp_mlp = on("mlp", {name: -2 if name == "w_out" else -1
+                                     for name in self.mlp})
+        if hasattr(self, "moe"):
+            self.ep = on("moe", {"w_in": -3, "w_gate": -3, "w_out": -3})
+            self.tp_shared = "shared_in" in self.moe and on(
+                "moe", {"shared_in": -1, "shared_gate": -1,
+                        "shared_out": -2})
+        runs = {"attn": self.tp_attn, "xattn": self.tp_xattn,
+                "mlp": self.tp_mlp}
+        on_slice = set()
+        for group, flag in runs.items():
+            if flag:
+                on_slice |= {f"{group}.{n}" for n in getattr(self, group)
+                             if n not in ("wq_a", "wkv_a")}
+        if self.ep:
+            on_slice |= {"moe.w_in", "moe.w_gate", "moe.w_out"}
+        if self.tp_shared:
+            on_slice |= {"moe.shared_in", "moe.shared_gate",
+                         "moe.shared_out"}
+        self.at_use = {name: place.model for name, place in placed.items()
+                       if place.model is not None and name not in on_slice}
 
     def init_repeat(self, generator: torch.Generator,
                     r: Optional[int]) -> None:
         """Draw repeat r's parameters (all of an unstacked block's: r None)
         as the JAX block init does.  Each MoE tensor is drawn in fp32 and
         copied (cast) into its stack before the next is drawn, so init
-        holds one fp32 draw beside the parameters.  A sharded tensor keeps
-        this rank's rows of the whole draw, so that every rank draws what
+        holds one fp32 draw beside the parameters.  A split tensor keeps
+        this rank's slice of the whole draw, so that every rank draws what
         one process would."""
         cfg, p = self.cfg, self.ln1
         kw = dict(dtype=p.dtype, device=p.device)
@@ -214,8 +336,10 @@ class _Block(nn.Module):
 
         def fill(group, params, draws):
             for name, w in draws:
-                if f"{group}.{name}" in self.sharded:
-                    w = shard.mine(self.comm, w)
+                place = self.placed.get(f"{group}.{name}")
+                if place:
+                    # the stack's repeat axis is not in the draw
+                    w = self.layout.slice(place, w)
                 rows(params[name]).copy_(w)
                 del w               # freed before the next draw
 
@@ -262,24 +386,26 @@ class _Mtp(nn.Module):
     SPEC = BlockSpec("attn", "dense")
 
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype,
-                 device: torch.device, comm: Optional[shard.Comm] = None):
+                 device: torch.device, layout: Optional[_Layout] = None):
         super().__init__()
         d = cfg.d_model
         shape = (2 * d, d)
-        self.sharded = (comm is not None and shard.shard_axis(
-            ("mtp", "proj"), shape, comm.world) is not None)
-        if self.sharded:
-            shape = shard.local_shape(("mtp", "proj"), shape, comm.world)
+        self.place = (layout.place(("mtp", "proj"), shape)
+                      if layout is not None else _WHOLE)
+        if self.place:
+            shape = layout.local(self.place, shape)
+        self.layout = layout
         self.proj = nn.Parameter(torch.empty(shape, dtype=dtype,
                                              device=device))
-        self.block = _Block(self.SPEC, cfg, None, dtype, device, comm)
+        self.block = _Block(self.SPEC, cfg, None, dtype, device, layout)
         self.ln = nn.Parameter(torch.empty((d,), dtype=dtype, device=device))
 
-    def init(self, generator: torch.Generator, shards: shard.Shards) -> None:
+    def init(self, generator: torch.Generator) -> None:
         d = self.ln.shape[0]
         w = dense_init(generator, 2 * d, d, dtype=self.ln.dtype,
                        device=self.ln.device)
-        self.proj.copy_(shards.mine(w) if "mtp.proj" in shards else w)
+        self.proj.copy_(self.layout.slice(self.place, w) if self.place
+                        else w)
         self.block.init_repeat(generator, None)
         self.ln.fill_(1.0)
 
@@ -291,12 +417,22 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, run: RunConfig = RunConfig(), *,
                  dtype: torch.dtype = torch.bfloat16,
-                 device=None, group=None):
+                 device=None, group=None, grid=None):
         """``group`` (a process group, or a ``sync.shard.Comm``): the
         data-parallel ranks over which ``run.fsdp`` shards the parameters
         (``shards`` names them; ``make_train_step`` takes the same group).
         With ``run.fsdp`` and no group, the model is one process's, whole;
-        without ``run.fsdp`` the group is not read."""
+        without ``run.fsdp`` the group is not read.
+
+        ``grid`` (a ``launch.mesh.Grid``, in place of ``group``): the
+        rank's place on a data × model grid, as a JAX mesh.  Each tensor
+        is split as JAX's rule splits it (``launch.sharding``): over the
+        model group (tensor and expert parallelism, the vocabulary) and,
+        under ``run.fsdp``, over the data group.  ``lm_head`` is padded to
+        a multiple of the model group's size (``vocab``) and its pad
+        columns masked, as JAX's.  ``run.batch_axes="all"`` makes every
+        rank a data rank (parameters replicated, or split over the world
+        under fsdp); ``run.moe_combine`` picks the experts' combine."""
         super().__init__()
         self.cfg = cfg
         self.run = run
@@ -308,42 +444,81 @@ class Model(nn.Module):
                 Segment(tuple(dataclasses.replace(s, cross=True)
                               for s in seg.pattern), seg.repeats)
                 for seg in self.segments_spec]
-        _check_run(run)
+        _check_run(run, grid)
+        if grid is not None and group is not None:
+            raise ValueError("Model: give a data-parallel group or a grid, "
+                             "not both")
         dev = _device.resolve(device)
         d, V = cfg.d_model, cfg.vocab_size
-        comm = shard.as_comm(group) if run.fsdp else None
-        names = []
+        self.grid = grid
+        every = grid is not None and run.batch_axes == "all"
+        if grid is None:
+            data = shard.as_comm(group) if run.fsdp else None
+            model = None
+        else:
+            data = grid.world if every else grid.data
+            model = grid.model if grid.tp > 1 and not every else None
+            if model is not None and model.log is None:
+                model.log = []
+        # the batch's ranks: the grid's data group (its world under
+        # batch_axes="all"), or the fsdp group
+        self.data_comm = data
+        self.tp = model_axis.Tp(model) if model is not None else None
+        # JAX pads the head to its mesh's "model" size, batch_axes aside
+        tp_pad = grid.tp if grid is not None else 1
+        self.vocab = -(-V // tp_pad) * tp_pad
+        layout = _Layout(cfg, run, grid, data, model)
+        placed: dict[str, sharding.Placement] = {}
+        self._top_at_use: dict[str, int] = {}
 
         def empty(*shape, name=None):
-            if comm is not None and name is not None and shard.shard_axis(
-                    (name,), shape, comm.world) is not None:
-                names.append(name)
-                shape = shard.local_shape((name,), shape, comm.world)
+            if name is not None:
+                place = layout.place((name,), shape)
+                if place:
+                    placed[name] = place
+                    shape = layout.local(place, shape)
+                    if place.model is not None:
+                        self._top_at_use[name] = place.model
             return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev))
 
-        self.embed = empty(V, d)
-        self.final_norm = empty(d)
+        self.embed = empty(V, d, name="embed")
+        self.final_norm = empty(d, name="final_norm")
         if not cfg.tie_embeddings:
-            self.lm_head = empty(d, V, name="lm_head")
+            self.lm_head = empty(d, self.vocab, name="lm_head")
         if cfg.vision_embed_dim:
-            self.vis_proj = empty(cfg.vision_embed_dim, d)
+            self.vis_proj = empty(cfg.vision_embed_dim, d, name="vis_proj")
         self.segments = nn.ModuleList(
-            nn.ModuleList(_Block(spec, cfg, seg.repeats, dtype, dev, comm)
+            nn.ModuleList(_Block(spec, cfg, seg.repeats, dtype, dev, layout)
                           for spec in seg.pattern)
             for seg in self.segments_spec)
         if cfg.encoder_layers:
             self.encoder = _Block(self.ENC_SPEC, cfg, cfg.encoder_layers,
-                                  dtype, dev, comm)
-            self.enc_norm = empty(d)
+                                  dtype, dev, layout)
+            self.enc_norm = empty(d, name="enc_norm")
         if cfg.mtp:
-            self.mtp = _Mtp(cfg, dtype, dev, comm)
-        names += [f"{prefix}.{name}" for prefix, m in self.named_modules()
-                  if isinstance(m, _Block) for name in m.sharded]
-        if cfg.mtp and self.mtp.sharded:
-            names.append("mtp.proj")
-        self.shards = shard.Shards(comm, names)
-        self._sharded_ids = {id(p) for n, p in self.named_parameters()
-                             if n in self.shards}
+            self.mtp = _Mtp(cfg, dtype, dev, layout)
+        self.layout = layout
+        blocks = [(prefix, m) for prefix, m in self.named_modules()
+                  if isinstance(m, _Block)]
+        placed.update({f"{prefix}.{name}": place for prefix, m in blocks
+                       for name, place in m.placed.items()})
+        if cfg.mtp and self.mtp.place:
+            placed["mtp.proj"] = self.mtp.place
+            if self.mtp.place.model is not None:
+                self._top_at_use["mtp.proj"] = self.mtp.place.model
+        self._placed = placed
+        if grid is None:
+            self.shards = shard.Shards(data, placed)
+        else:
+            self.shards = shard.GridShards(data, model, grid.world, placed)
+        params = dict(self.named_parameters())
+        self._sharded_ids = {id(params[n]) for n in self.shards.data_names}
+        # id → model axis of every tensor gathered whole at use
+        self._at_use = {id(params[f"{prefix}.{name}"]): ax
+                        for prefix, m in blocks
+                        for name, ax in m.at_use.items()}
+        self._at_use.update({id(params[n]): ax
+                             for n, ax in self._top_at_use.items()})
 
     @property
     def device(self) -> torch.device:
@@ -354,19 +529,24 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Fill every parameter as the JAX init does: norms with ones, the
         rest fp32 normal × scale cast to the model dtype, one repeat of a
-        stacked block at a time (to bound the fp32 temporaries)."""
+        stacked block at a time (to bound the fp32 temporaries).  A split
+        tensor keeps this rank's slice of the whole draw."""
         cfg, kw = self.cfg, dict(dtype=self.dtype, device=self.device)
-        self.embed.copy_(embed_init(generator, cfg.vocab_size, cfg.d_model,
-                                    **kw))
+
+        def put(name, w):
+            place = self._placed.get(name)
+            getattr(self, name).copy_(self.layout.slice(place, w)
+                                      if place else w)
+
+        put("embed", embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                **kw))
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
-            w = dense_init(generator, cfg.d_model, cfg.vocab_size, **kw)
-            self.lm_head.copy_(self.shards.mine(w) if "lm_head" in self.shards
-                               else w)
-            del w
+            put("lm_head", dense_init(generator, cfg.d_model, self.vocab,
+                                      **kw))
         if cfg.vision_embed_dim:
-            self.vis_proj.copy_(dense_init(generator, cfg.vision_embed_dim,
-                                           cfg.d_model, **kw))
+            put("vis_proj", dense_init(generator, cfg.vision_embed_dim,
+                                       cfg.d_model, **kw))
         for seg, blocks in zip(self.segments_spec, self.segments):
             for r in range(seg.repeats):
                 for block in blocks:
@@ -376,30 +556,41 @@ class Model(nn.Module):
                 self.encoder.init_repeat(generator, r)
             self.enc_norm.fill_(1.0)
         if cfg.mtp:
-            self.mtp.init(generator, self.shards)
+            self.mtp.init(generator)
         return self
 
     # ------------------------------------------------------------------
     def _apply_block(self, bp: dict, spec: BlockSpec, x, *,
                      positions=None, cache=None, cache_index=None,
-                     enc_out=None):
-        """One block: (x, the block's MoE aux loss, or None)."""
-        cfg, run = self.cfg, self.run
+                     enc_out=None, block: Optional[_Block] = None):
+        """One block: (x, the block's MoE aux loss, or None).  On a grid
+        ``block`` says which parts run on this rank's slice: those enter
+        through ``tp.enter`` and leave through ``tp.combine``."""
+        cfg, run, tp = self.cfg, self.run, self.tp
+        tp_attn = block is not None and block.tp_attn
+        lcfg = block.local_cfg if block is not None else cfg
         aux = None
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
         if spec.mixer == "attn":
             c = cache.get("attn") if cache else None
             if cfg.attn_type == "mla":
-                out, _ = attn.mla_apply(bp["attn"], h, cfg,
+                enter = ((lambda t: tp.enter(t, "attn")) if tp_attn
+                         else None)
+                out, _ = attn.mla_apply(bp["attn"], h,
+                                        lcfg if tp_attn else cfg,
                                         positions=positions, cache=c,
                                         cache_index=cache_index,
-                                        impl=run.attn_impl)
+                                        impl=run.attn_impl, enter=enter)
             else:
-                out, _ = attn.gqa_apply(bp["attn"], h, cfg,
+                out, _ = attn.gqa_apply(bp["attn"],
+                                        tp.enter(h, "attn") if tp_attn
+                                        else h, lcfg if tp_attn else cfg,
                                         positions=positions, cache=c,
                                         cache_index=cache_index,
                                         causal=spec.causal,
                                         impl=run.attn_impl)
+            if tp_attn:
+                out = tp.combine(out, "attn")
         else:
             out, _ = ssm.ssm_apply(bp["ssm"], h, cfg,
                                    cache=cache.get("ssm") if cache else None,
@@ -407,15 +598,31 @@ class Model(nn.Module):
         x = x + out
         if spec.cross and enc_out is not None:
             h = rmsnorm(bp["ln_x"], x, cfg.norm_eps)
-            out, _ = attn.gqa_apply(bp["xattn"], h, cfg, kv_src=enc_out,
-                                    impl=run.attn_impl)
+            if block is not None and block.tp_xattn:
+                out, _ = attn.gqa_apply(bp["xattn"], tp.enter(h, "xattn"),
+                                        lcfg, kv_src=tp.enter(enc_out,
+                                                              "xattn"),
+                                        impl=run.attn_impl)
+                out = tp.combine(out, "xattn")
+            else:
+                out, _ = attn.gqa_apply(bp["xattn"], h, cfg, kv_src=enc_out,
+                                        impl=run.attn_impl)
             x = x + out
         if spec.ffn == "dense":
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-            x = x + mlp(bp["mlp"], h, cfg.mlp_type)
+            if block is not None and block.tp_mlp:
+                x = x + tp.combine(mlp(bp["mlp"], tp.enter(h, "mlp"),
+                                       cfg.mlp_type), "mlp")
+            else:
+                x = x + mlp(bp["mlp"], h, cfg.mlp_type)
         elif spec.ffn == "moe":
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-            y, aux = moe.moe_apply(bp["moe"], h, cfg)
+            split = block is not None and (block.ep or block.tp_shared)
+            y, aux = moe.moe_apply(bp["moe"], h, cfg,
+                                   tp=tp if split else None,
+                                   combine=run.moe_combine,
+                                   ep=split and block.ep,
+                                   shared_tp=split and block.tp_shared)
             x = x + y
         return x, aux
 
@@ -427,19 +634,26 @@ class Model(nn.Module):
         rows (``sync.shard.gathered``; by ``sync``, a ``GradSync``, where
         there is one); with ``bucket`` the other rows pass through
         ``sync``'s bucket, so that their gradients are reduced as soon as
-        this repeat's backward is done."""
+        this repeat's backward is done.  On a grid a tensor that runs
+        whole but is split over the model group is then gathered over it
+        (``sync.shard.gathered_at_use``)."""
         stacks = [t for tree in trees for t in _leaves(tree)]
         whole = [t for t in stacks if id(t) in self._sharded_ids]
         rest = [t for t in stacks if id(t) not in self._sharded_ids]
         got = {}
         if whole:
             got.update(zip(map(id, whole), shard.gathered(
-                self.shards.comm, sync, key, whole, r,
+                self.shards.data, sync, key, whole, r,
                 now=self.run.sync_mode == "bucketed")))
         if rest:
             rows = (sync.bucket(key, rest, r) if bucket
                     else [t if r is None else t[r] for t in rest])
             got.update(zip(map(id, rest), rows))
+        at_use = [t for t in stacks if id(t) in self._at_use]
+        if at_use:
+            got.update(zip(map(id, at_use), shard.gathered_at_use(
+                self.tp.comm, key, [got[id(t)] for t in at_use],
+                [self._at_use[id(t)] for t in at_use])))
         rows = iter([got[id(t)] for t in stacks])
         return [_rebuild(tree, rows) for tree in trees]
 
@@ -451,8 +665,8 @@ class Model(nn.Module):
         the others, ``bucketed``, through ``sync``'s bucket, so that their
         gradients are reduced when this repeat's backward is done).
         Returns (x, the MoE blocks' summed aux loss, or None)."""
-        bps = self._rows((si, r), [block.stacked()
-                                   for block in self.segments[si]],
+        blocks = self.segments[si]
+        bps = self._rows((si, r), [block.stacked() for block in blocks],
                          r, sync, bucket=bucketed)
         total_aux = None
         for j, spec in enumerate(self.segments_spec[si].pattern):
@@ -462,7 +676,8 @@ class Model(nn.Module):
                          for name, c in caches[si][j].items()}
             x, aux = self._apply_block(
                 bps[j], spec, x, positions=positions,
-                cache=cache, cache_index=cache_index, enc_out=enc_out)
+                cache=cache, cache_index=cache_index, enc_out=enc_out,
+                block=blocks[j])
             if aux is not None:
                 total_aux = aux if total_aux is None else total_aux + aux
         return x, total_aux
@@ -508,7 +723,7 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def _encode_layer(self, r: int, x, sync=None):
         bp, = self._rows(("encoder", r), [self.encoder.stacked()], r, sync)
-        return self._apply_block(bp, self.ENC_SPEC, x)[0]
+        return self._apply_block(bp, self.ENC_SPEC, x, block=self.encoder)[0]
 
     def encode(self, batch: dict, sync=None) -> torch.Tensor:
         """Whisper's encoder over precomputed frame embeddings
@@ -527,23 +742,37 @@ class Model(nn.Module):
                 x = self._encode_layer(r, x, sync)
         return rmsnorm(self.enc_norm, x, self.cfg.norm_eps)
 
-    def _embed_inputs(self, batch: dict):
+    def _embed_inputs(self, batch: dict, sync=None):
         """Token embedding, after the projected vision prefix if any.
         Returns (x, the prefix's length)."""
-        x = self.embed[batch["tokens"]].to(self.dtype)
+        x = self._whole("embed", sync)[batch["tokens"]].to(self.dtype)
         n_prefix = 0
         if self.cfg.vision_embed_dim and "vision_embeds" in batch:
-            v = batch["vision_embeds"].to(self.dtype) @ self.vis_proj
+            v = batch["vision_embeds"].to(self.dtype) @ self._whole(
+                "vis_proj", sync)
             x = torch.cat([v, x], dim=1)
             n_prefix = v.shape[1]
         return x, n_prefix
 
+    def _whole(self, name: str, sync=None) -> torch.Tensor:
+        """Top-level parameter ``name`` as a use takes it: gathered where
+        it is split (``_rows``)."""
+        got, = self._rows((name,), [{"w": getattr(self, name)}], None, sync)
+        return got["w"]
+
     def _head(self, x, sync=None):
+        """Logits over ``vocab`` columns; on a grid whose model group pads
+        the head, the pad columns are masked to -1e30 (JAX's ``_head``)."""
         x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            return x @ self.embed.T
+            return x @ self._whole("embed", sync).T
         head, = self._rows(("head",), [{"w": self.lm_head}], None, sync)
-        return x @ head["w"]
+        logits = x @ head["w"]
+        if self.vocab != self.cfg.vocab_size:
+            cols = torch.arange(self.vocab, device=logits.device)
+            neg = torch.where(cols < self.cfg.vocab_size, 0.0, -1e30)
+            logits = logits + neg.to(logits.dtype)
+        return logits
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
@@ -563,7 +792,7 @@ class Model(nn.Module):
         cfg = self.cfg
         sync = sync if torch.is_grad_enabled() else None
         enc_out = self.encode(batch, sync) if cfg.encoder_layers else None
-        x, n_prefix = self._embed_inputs(batch)
+        x, n_prefix = self._embed_inputs(batch, sync)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self._run_segments(x, positions=positions, enc_out=enc_out,
                                     sync=sync)
@@ -583,10 +812,11 @@ class Model(nn.Module):
             proj, bp = self._rows(("mtp",), [{"proj": mtp.proj},
                                              mtp.block.stacked()], None, sync)
             h_in = rmsnorm(mtp.ln, h[:, :-1], cfg.norm_eps)
-            nxt = self.embed[tokens[:, 1:]].to(self.dtype)
+            nxt = self._whole("embed", sync)[tokens[:, 1:]].to(self.dtype)
             z = torch.cat([h_in, nxt], dim=-1) @ proj["proj"]
             z, _ = self._apply_block(bp, mtp.SPEC, z,
-                                     positions=positions[:z.shape[1]])
+                                     positions=positions[:z.shape[1]],
+                                     block=mtp.block)
             mtp_ce = cross_entropy(self._head(z[:, :-1], sync).float(),
                                    tokens[:, 2:])
             loss = loss + 0.3 * mtp_ce
@@ -606,15 +836,16 @@ class Model(nn.Module):
         max_len)."""
         caches = []
         kw = dict(dtype=self.dtype, device=self.device)
-        for seg in self.segments_spec:
+        for seg, blocks in zip(self.segments_spec, self.segments):
             seg_caches = []
-            for spec in seg.pattern:
+            for spec, block in zip(seg.pattern, blocks):
                 if spec.mixer == "attn":
                     init = (attn.mla_cache_init
                             if self.cfg.attn_type == "mla"
                             else attn.gqa_cache_init)
-                    name, one = "attn", init(self.cfg, batch_size, max_len,
-                                             **kw)
+                    # a rank of the model group caches its own KV heads
+                    name, one = "attn", init(block.local_cfg, batch_size,
+                                             max_len, **kw)
                 else:
                     name, one = "ssm", ssm.ssm_cache_init(
                         self.cfg, batch_size, **kw)
@@ -646,7 +877,7 @@ class Model(nn.Module):
         if self.cfg.encoder_layers and enc_out is None:
             raise ValueError(f"{self.cfg.name} has an encoder: decode_step "
                              f"needs its enc_out (Model.encode)")
-        x = self.embed[tokens].to(self.dtype)
+        x = self._whole("embed")[tokens].to(self.dtype)
         x, _ = self._run_segments(x, caches=caches, cache_index=index,
                                   enc_out=enc_out)
         return self._head(x), caches

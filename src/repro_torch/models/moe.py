@@ -1,8 +1,11 @@
-"""Mixture-of-Experts blocks on one device: the router, capacity-bounded
-dispatch, the expert FFNs on the grouped-matmul kernel K3, and the combine.
+"""Mixture-of-Experts blocks: the router, capacity-bounded dispatch, the
+expert FFNs on the grouped-matmul kernel K3, and the combine.
 
-The single-device path of the JAX package's ``moe_apply`` (``mesh=None``:
-one expert shard, no ``shard_map``, no cross-shard combine).  Each expert
+One process runs the single-device path of the JAX package's
+``moe_apply`` (``mesh=None``: one expert shard, no cross-shard combine);
+on a grid of ranks (``launch.mesh``) each rank of the model group runs
+its ``shard_map`` body: its own experts, then the combine over the
+group (``moe_apply``).  Each expert
 takes at most ``_capacity(T)`` of the T tokens in a call; assignments past
 that are dropped, in the order of a stable sort by expert id (so by token
 within an expert), as there.  Parameters keep the JAX names and layouts;
@@ -12,7 +15,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
+import operator
 from typing import Iterator
 
 import torch
@@ -155,25 +160,54 @@ def route(x2: torch.Tensor, router: torch.Tensor, cfg: ArchConfig) -> Routing:
     return r
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig):
+def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *, tp=None,
+              combine: str = "psum", ep: bool = False,
+              shared_tp: bool = False):
     """x: [B,S,d] → (y [B,S,d] in x's dtype, aux loss, a 0-d fp32 tensor).
 
     The expert FFN runs through ``ops.grouped_matmul`` (K3 on the card):
     three products, ``silu(x@w_gate) * (x@w_in)`` then ``@ w_out``.
-    """
+
+    On a grid's model group ``tp`` (``sync.model_axis.Tp``), as JAX's
+    ``shard_map`` body: with ``ep`` each rank holds experts ``rank·E/ep …
+    (rank+1)·E/ep`` (``p``'s banks are its slice), routes the whole of
+    its data shard's tokens (the same routing and aux loss on every rank)
+    and dispatches to its own experts only; with ``shared_tp`` the shared
+    expert runs on its columns.  Those parts are summed over the group by
+    ``tp.combine`` (``combine``: ``"psum"`` or ``"psum_scatter"``)."""
     B, S, d = x.shape
     x2 = x.reshape(-1, d)
     r = route(x2, p["router"], cfg)
+    tok, gate = r.tok, r.gate
+    x_in = tp.enter(x2, "moe") if ep or shared_tp else x2
+    if ep:
+        # the gates of the local experts' slots: their gradient, and so
+        # the router's through them, is this rank's part of the sum
+        n = p["w_in"].shape[0]
+        lo = tp.rank * n
+        tok = tok[lo:lo + n]
+        gate = tp.enter(gate, "moe.gate")[lo:lo + n]
 
-    xe = x2[r.tok]                                              # [E,C,d]
+    xe = (x_in if ep else x2)[tok]                              # [E,C,d]
     h = F.silu(ops.grouped_matmul(xe, p["w_gate"])) \
         * ops.grouped_matmul(xe, p["w_in"])
     ye = ops.grouped_matmul(h, p["w_out"])                      # [E,C,d]
-    ye = ye * r.gate[..., None].to(ye.dtype)
+    ye = ye * gate[..., None].to(ye.dtype)
     y = torch.zeros((x2.shape[0], d), dtype=ye.dtype, device=x.device)
-    y.index_add_(0, r.tok.reshape(-1), ye.reshape(-1, d))
+    y.index_add_(0, tok.reshape(-1), ye.reshape(-1, d))
 
+    # the terms of y: each rank's part of the group's sum, or whole
+    terms = {True: [], False: []}
+    terms[ep].append(y)
     if "shared_in" in p:
-        hs = F.silu(x2 @ p["shared_gate"]) * (x2 @ p["shared_in"])
-        y = y + hs @ p["shared_out"]
+        xs = x_in if shared_tp else x2
+        hs = F.silu(xs @ p["shared_gate"]) * (xs @ p["shared_in"])
+        terms[shared_tp].append(hs @ p["shared_out"])
+    parts, whole = (functools.reduce(operator.add, terms[k])
+                    if terms[k] else None for k in (True, False))
+    if parts is not None:
+        parts = tp.combine(parts, "moe", combine)
+        y = parts if whole is None else whole + parts
+    else:
+        y = whole
     return y.reshape(B, S, d), r.aux

@@ -24,11 +24,16 @@ Under ``RunConfig.fsdp`` the parameters of a ``Model`` with ``shards``
 moments: the update runs on the rows, and each int8 scale (one a
 last-axis row) is the whole tensor's.  Global-norm clipping sums the
 squares of the sharded gradients over the ranks and adds each replicated
-gradient once, so that every rank clips by the same norm.
+gradient once, so that every rank clips by the same norm.  On a grid of
+ranks (``launch.mesh``) the model group's slices are summed over that
+group too, and a tensor whose last axis the model group splits (a
+column-parallel projection) takes each int8 scale over the whole row,
+across the group, as JAX's scale is the whole row's.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Iterator, Mapping, Optional, Union
 
@@ -60,10 +65,15 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
 # ----------------------------------------------------------------------
 # int8 block quantisation of the moments
 # ----------------------------------------------------------------------
-def _quant8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _quant8(x: torch.Tensor, whole_row: Optional[Callable] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 codes and fp32 scales (absmax over the last axis / 127) of an
-    fp32 tensor; ``torch.round`` rounds half to even, as ``jnp.round``."""
+    fp32 tensor; ``torch.round`` rounds half to even, as ``jnp.round``.
+    ``whole_row`` takes the rows' absmax over the ranks that split the
+    last axis (``sync.shard.Shards.row_absmax``)."""
     absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    if whole_row is not None:
+        absmax = whole_row(absmax)
     # a divisor on the tensor's device: CUDA multiplies by the reciprocal
     # of a Python scalar divisor, one ulp off the quotient at times
     scale = torch.clamp(absmax, min=1e-12) / torch.tensor(
@@ -132,9 +142,10 @@ class AdamW:
             return _dequant8(moment["q"][idx], moment["s"][idx])
         return moment[idx]
 
-    def _write(self, moment, idx: tuple, value: torch.Tensor) -> None:
+    def _write(self, moment, idx: tuple, value: torch.Tensor,
+               whole_row: Optional[Callable] = None) -> None:
         if self.cfg.state_8bit:
-            q, s = _quant8(value)
+            q, s = _quant8(value, whole_row)
             moment["q"][idx].copy_(q)
             moment["s"][idx].copy_(s)
 
@@ -153,8 +164,8 @@ class AdamW:
                            f"{sorted(named.keys() ^ grads.keys())}")
 
         scale = None
+        shards = getattr(params, "shards", None)
         if cfg.clip_norm is not None:
-            shards = getattr(params, "shards", None)
             if shards:
                 sq = shards.sq_norm(grads)
             else:
@@ -172,6 +183,8 @@ class AdamW:
         for name, p in named.items():
             decay = cfg.weight_decay if p.ndim >= 2 else 0.0
             m_st, v_st = state["m"][name], state["v"][name]
+            whole_row = (functools.partial(shards.row_absmax, name)
+                         if shards and name in shards else None)
             for idx in _slices(p):
                 g = grads[name][idx].float()      # may be the caller's
                 if scale is not None:
@@ -182,8 +195,8 @@ class AdamW:
                 del g
                 delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
                 # m and v are stored after the update has read them
-                self._write(m_st, idx, m)
-                self._write(v_st, idx, v)
+                self._write(m_st, idx, m, whole_row)
+                self._write(v_st, idx, v, whole_row)
                 del m, v
                 pf = p[idx].float()
                 delta.add_(pf * decay)

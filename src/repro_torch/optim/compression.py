@@ -62,10 +62,11 @@ def decompress_leaf(g8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def compress_tree(grads: Tree, err: Tree, shards=None
                   ) -> tuple[dict, dict, dict]:
     """``compress_leaf`` over every key: (g8, scale, new_err) trees.
-    ``shards`` (``sync.shard.Shards``, under ``RunConfig.fsdp``): the
-    parameters whose gradients and errors are this rank's rows, each
-    scaled by the whole tensor's absmax, the same on every rank, as JAX's
-    GSPMD takes it."""
+    ``shards`` (``sync.shard.Shards``, under ``RunConfig.fsdp`` or on a
+    grid of ranks): the parameters whose gradients and errors are this
+    rank's slices, each scaled by the whole tensor's absmax (over the
+    data group, the model group or both, as each is split), the same on
+    every rank, as JAX's GSPMD takes it."""
     if grads.keys() != err.keys():
         raise KeyError(f"gradients and error state differ: "
                        f"{sorted(grads.keys() ^ err.keys())}")

@@ -192,8 +192,10 @@ def run_training(loop: LoopConfig, *,
     Under a process ``group`` every rank runs the loop (the same steps,
     the same injected failure); rank 0 alone writes each checkpoint (an
     async one is joined first) and every rank then waits at a barrier, so
-    a restart finds the same ``latest_step`` on every rank.  A state
-    sharded under ``RunConfig.fsdp`` is saved by every rank's call
+    a restart finds the same ``latest_step`` on every rank.  On a grid of
+    ranks (``launch.mesh``) ``group`` is the grid's world: its rank 0
+    writes.  A state sharded under ``RunConfig.fsdp`` (or split over a
+    grid's model group) is saved by every rank's call
     (``checkpoint.ckpt.save`` gathers each sharded leaf to rank 0, which
     writes it) and each rank restores its own rows."""
     restarts = 0

@@ -334,3 +334,119 @@ def test_sharded_trace_counts_gathers_and_reduce_scatters():
                                           if n not in sharded) + 4)})
     assert got["coll_bytes"] == pytest.approx(
         sum(got["roofline"]["coll_breakdown"].values()))
+
+
+# ----------------------------------------------------------------------
+# a rank of a data x model grid
+# ----------------------------------------------------------------------
+_JAX_DEFAULT_RUN = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
+import json
+from repro import configs
+from repro.configs.base import SHAPES
+from repro.launch.dryrun import default_run
+
+out = {}
+for arch in configs.ARCHS:
+    r = default_run(configs.get(arch))
+    out[arch] = {k: getattr(r, k) for k in (
+        "fsdp", "opt_8bit", "remat", "batch_axes", "microbatches")}
+    # lower_cell's choice on its 256-chip mesh (launch/dryrun.py:71-78)
+    out[arch]["seq_shard"] = {
+        name: r.batch_axes == "all" and shape.global_batch % 256 != 0
+        for name, shape in SHAPES.items()}
+print(json.dumps(out))
+"""
+
+
+def test_default_run_on_a_mesh_is_jax_s():
+    """On a 16×16 grid ``default_run`` takes JAX's whole choice,
+    ``batch_axes`` included, and reports the ``seq_shard`` choice JAX's
+    ``lower_cell`` makes for each shape; a cell that needs it is a skip
+    record naming it."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", _JAX_DEFAULT_RUN],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    want = json.loads(res.stdout.strip().splitlines()[-1])
+    for arch in tconfigs.ARCHS:
+        seq = want[arch].pop("seq_shard")
+        for name, shape in SHAPES.items():
+            run, jax_run = dryrun.default_run(tconfigs.get(arch),
+                                              shape=shape, mesh=(16, 16))
+            assert jax_run == {**want[arch], "seq_shard": seq[name]}, arch
+            assert (run.fsdp, run.batch_axes, run.opt_8bit, run.remat,
+                    run.microbatches) == tuple(want[arch][k] for k in (
+                        "fsdp", "batch_axes", "opt_8bit", "remat",
+                        "microbatches")), arch
+        assert any(seq.values()) == (want[arch]["batch_axes"] == "all")
+    rec = dryrun.trace_cell("mamba2-130m", "prefill_32k", mesh=(16, 16))
+    assert rec["ok"] is False and "seq_shard" in rec["skipped"]
+    assert rec["jax_run"]["seq_shard"] is True
+
+
+_GRID_STEP = r"""
+import collections, datetime, json, sys
+import torch, torch.distributed as dist
+from repro_torch import configs
+from repro_torch.configs.base import RunConfig
+from repro_torch.launch import mesh, train
+from repro_torch.models import Model
+from repro_torch.optim import AdamW
+
+rank, store = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=store, rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+grid = mesh.make_grid((1, 2))
+cfg = configs.get_smoke("olmoe-1b-7b")
+run = RunConfig(remat=True)
+m = Model(cfg, run, dtype=torch.float32, device="cpu", grid=grid)
+opt = AdamW()
+state = train.init_train_state(m, opt, run, torch.Generator().manual_seed(0))
+step = train.make_train_step(m, opt, run, grid=grid)
+step(state, {"tokens": torch.zeros((4, 16), dtype=torch.long)})
+if rank == 0:
+    print(json.dumps(collections.Counter(
+        f"{kind} {key}" for kind, key in step.model_log)))
+dist.destroy_process_group()
+"""
+
+
+def test_a_grid_trace_counts_the_model_group_s_collectives(tmp_path):
+    """A (1,2) trace of olmoe-1b-7b's smoke step counts the model group's
+    collectives, by what each serves, as two gloo ranks on that grid log
+    them in one training step; their bytes are filed apart from the data
+    group's."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _GRID_STEP, str(r),
+         f"file://{tmp_path / 'store'}"], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], [e[-2000:]
+                                                     for _, e in outs]
+    logged = json.loads(outs[0][0].strip().splitlines()[-1])
+    got = dryrun.trace_step(tconfigs.get_smoke("olmoe-1b-7b"),
+                            RunConfig(remat=True),
+                            ShapeConfig("tiny_train", 16, 4, "train"), 4,
+                            mesh=(1, 2))
+    assert got["model_collectives"] == logged
+    # per layer: attention's combine (again in remat's recompute) and its
+    # input's gradient; the experts' combine and input gradient, the gates'
+    assert logged["all-reduce attn"] == 3 * 2
+    assert logged["all-reduce moe"] == 2 * 2
+    assert logged["all-reduce moe.gate"] == 2
+    kinds = set(got["roofline"]["coll_breakdown"])
+    assert {"model all-reduce", "model all-gather",
+            "model reduce-scatter"} <= kinds
