@@ -27,7 +27,7 @@ Phases (each raises on failure):
    plain bf16 path's and an fp32 reference's on the same weights; each
    serving phase (4, 7, 10) warms up with a short request, times TTFT on
    the first full-size prefill, and prints a second prefill's time beside
-   it;
+   it; phase 4 keeps its prompts, tokens and logits for phase 26;
 5. K2 (the SSD intra-chunk term, CUDA; bf16 on the tensor cores) against
    its plain PyTorch version on the card at the mamba2-130m serving prefill
    shape, Q 8, a prompt shorter than a chunk, two groups of two heads, a
@@ -201,7 +201,32 @@ Phases (each raises on failure):
    smoke configs of deepseek-7b, olmoe-1b-7b (both combines),
    deepseek-v3-671b (both) and mamba2-130m, one fp32 step each (fsdp on
    the (2,2) grid), its loss, gathered gradients and parameters after
-   AdamW within STEP_TOL of max|·| of the one-process step here.
+   AdamW within STEP_TOL of max|·| of the one-process step here; then
+   each of them served in fp32 (a one-call prefill of GRID_PROMPT tokens
+   and GRID_DECODE steps), each rank its rows of the batch over its
+   block of JAX's decode-cache layout, and on (2,2) deepseek-7b at a
+   batch of 1 (T over all four ranks, the last holding no valid row):
+   every rank's logits within STEP_TOL of max|·| of one process's over
+   its rows, each call's collectives as ``step_log`` counts them;
+26. decode with JAX's cache layout (``Model.init_cache`` on a grid):
+   deepseek-7b at full width (bf16, seed 0, as phase 4) on a (1,2) grid
+   of two gloo ranks on this card (``--grid-mode decode``), each rank all
+   32 KV heads of its 528 of the 1056 cache rows: its cache bytes equal
+   to the block arithmetic (1,038,090,240 B), phase 4's prompts
+   prefilled in one call (K1 30 launches at 16 heads) and each of phase
+   4's 32 greedy tokens decoded teacher-forced (attention over the
+   rank's rows, the softmax partials merged over the ranks), each call's
+   collectives as ``step_log`` counts them; the prefill's last-position
+   logits and every step's within AGREE_VS_PLAIN_ERR times phase 4's
+   plain path's error of phase 4's (phase 4 saves its prompts, tokens
+   and logits for this); each rank's peak and ms printed.  That bound is
+   bf16 noise over 30 layers, so the merge is also checked in fp32 at
+   these shapes: layer 0's merged attention of the last step on each
+   rank within STEP_TOL of max|·| of an fp64 softmax over both ranks'
+   rows, and two faults planted in the same partials (rank 1's dropped;
+   the exp(m − max) rescale skipped) beyond it; and a last step with
+   rank 1's partial dropped in every layer must give logits beyond the
+   bf16 bound (the judge sees such a fault).
 
 The last lines are the script's seconds (by phase, then in all), a
 ``{"kernels": [...]}`` JSON
@@ -804,6 +829,10 @@ class Served:
     requests: dict                  # {"tokens"} and any "audio_embeds"
     last_logits: torch.Tensor       # kernel path, last prompt position, fp32
     launches: dict[str, int]        # per kernel, prefill and decode
+    tokens: torch.Tensor            # the greedy tokens [B, gen]
+    # the decode steps' last-position logits [B, gen, V] in the model
+    # dtype: gen - 1 steps, then the step after the last token
+    step_logits: torch.Tensor
 
     @property
     def prompts(self) -> torch.Tensor:
@@ -818,7 +847,8 @@ def serve_run(cfg, batch: int, prompt: int, gen: int,
     first, inside TTFT and the prefill's launches.  ``want`` maps a kernel
     of ``WRAPPERS`` to the launches the prefill and each decode step must
     make (every other kernel: none); tokens and logits are checked, the
-    times and peak memory (of the init, and of serving) printed."""
+    times and peak memory (of the init, and of serving) printed; each
+    step's logits are kept (``Served.step_logits``)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -852,8 +882,10 @@ def serve_run(cfg, batch: int, prompt: int, gen: int,
         prefill_launches = counts()
 
         zero_counts()
+        steps = []
         t0 = time.perf_counter()
-        rest, cache = serve.decode(model, cache, tok, prompt, n_dec, enc_out)
+        rest, cache = serve.decode(model, cache, tok, prompt, n_dec, enc_out,
+                                   logits=steps)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         decode_launches = counts()
@@ -899,23 +931,31 @@ def serve_run(cfg, batch: int, prompt: int, gen: int,
     print(f"serve {cfg.name}: a second prefill of the same prompts "
           f"{1e3 * second_prefill:.2f} ms (TTFT above: the first)")
     print("sample:", tokens[0, :16].tolist())
+    steps = torch.stack([x[:, -1] for x in steps + [last_logits]], 1)
     return Served(model, requests, logits[:, -1].float(),
                   {name: prefill_launches[name] + decode_launches[name]
-                   for name in WRAPPERS})
+                   for name in WRAPPERS}, tokens, steps)
 
 
 def model_bytes(model: Model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def phase_serve() -> dict:
+def phase_serve(out: str) -> dict:
+    """Phase 4; its prompts, greedy tokens, last-position prefill logits,
+    each decode step's logits (bf16) and its two paths' errors are saved
+    to ``out`` for phase 26."""
     run = serve_run(configs.get(SERVE_ARCH), SERVE_BATCH, SERVE_PROMPT,
                     SERVE_GEN, {"K1": (configs.get(SERVE_ARCH).n_layers, 0)})
-    judge_prefill(run)
+    errs = judge_prefill(run)
+    torch.save({"prompts": run.prompts.cpu(), "tokens": run.tokens.cpu(),
+                "prefill_last": run.last_logits.cpu(),
+                "steps": run.step_logits.cpu(), **errs},
+               f"{out}/{PHASE4_FILE}")
     return run.launches
 
 
-def judge_prefill(run: Served) -> None:
+def judge_prefill(run: Served) -> dict:
     """Phase 4's rule on the last-position prefill logits: the kernel path
     no farther from an fp32 model on the same weights (plain attention)
     than the plain bf16 path (x KERNEL_VS_PLAIN_ERR), and the two bf16
@@ -945,6 +985,8 @@ def judge_prefill(run: Served) -> None:
             "the kernel path's prefill logits are less accurate than the "
             "plain bf16 path's, or disagree with them by more than twice the "
             "plain path's own bf16 error")
+    return {"rel_kernel": rel_k, "rel_plain": rel_p,
+            "rel_kernel_plain": rel_kp}
 
 
 def phase_k2() -> dict:
@@ -2365,6 +2407,11 @@ GRID_FULL = (1, 2)
 GRID_ARCHS = ("deepseek-7b", "olmoe-1b-7b", "deepseek-v3-671b",
               "mamba2-130m")
 GRID_B, GRID_S = 4, 16
+# the smoke grids' serving: a one-call prefill of GRID_PROMPT tokens into
+# a cache of GRID_S rows (JAX's layout: T over "model", or over all four
+# ranks of the (2,2) grid at a batch of 1, where the last rank's rows all
+# lie past the prompt), then GRID_DECODE steps on the next tokens
+GRID_PROMPT, GRID_DECODE = 11, 3
 # The grid's forward sums each row-parallel projection's and the experts'
 # parts in another order than one process does.  That moves a router's
 # inputs by fp32 rounding, and over 16 capacity-bound MoE layers a moved
@@ -2608,12 +2655,70 @@ def grid_smoke(grid, rank: int, sizes: tuple, out: str) -> dict:
     return res
 
 
-def grid_worker(rank: int, sizes: tuple, init: str, out: str) -> None:
+def grid_decode_cells(sizes: tuple) -> list[tuple[str, str, int]]:
+    """(tag, arch, global batch) of the smoke serving runs on a grid of
+    ``sizes``: each of GRID_ARCHS at GRID_B, and on (2,2) deepseek-7b at
+    a batch of 1 too."""
+    name = "x".join(map(str, sizes))
+    out = [(f"{arch} {name} decode", arch, GRID_B) for arch in GRID_ARCHS]
+    if sizes == (2, 2):
+        out.append((f"deepseek-7b {name} decode B1", "deepseek-7b", 1))
+    return out
+
+
+def smoke_decode(model: Model, tokens: torch.Tensor, cache,
+                 log: bool = False) -> tuple[list, list]:
+    """The smoke serving calls: a one-call prefill of GRID_PROMPT tokens,
+    then GRID_DECODE steps on the next ones; each call's logits on the
+    CPU, and (``log``) whether its model-group collectives are
+    ``step_log``'s."""
+    calls = [(tokens[:, :GRID_PROMPT], 0)] + [
+        (tokens[:, i:i + 1], i)
+        for i in range(GRID_PROMPT, GRID_PROMPT + GRID_DECODE)]
+    outs, logs_ok = [], []
+    with torch.inference_mode():
+        for t, i in calls:
+            if log and model.tp is not None:
+                model.tp.comm.log = []
+            logits, cache = model.decode_step(cache, t, i)
+            outs.append(logits.float().cpu())
+            if log:
+                got = Counter((k, str(key)) for k, key in (
+                    model.tp.comm.log if model.tp is not None else []))
+                logs_ok.append(dict(got) == {
+                    (k, str(key)): n for (k, key), n in
+                    model_axis.step_log(model, cache, i).items()})
+    return outs, logs_ok
+
+
+def grid_smoke_decode(grid, rank: int, sizes: tuple, out: str) -> dict:
+    """Each of ``grid_decode_cells(sizes)`` served on the grid
+    (``smoke_decode``): the rank's rows of the batch over its block of
+    JAX's cache layout; its logits saved for the script's process to hold
+    to one process's."""
+    res = {}
+    for tag, arch, B in grid_decode_cells(sizes):
+        model = grid_smoke_model(arch, RunConfig(), grid)
+        cache = model.init_cache(B, GRID_S)
+        lay = cache.layout
+        tokens = grid_tokens(arch)[:B][lay.row0:lay.row0 + lay.rows]
+        outs, logs_ok = smoke_decode(model, tokens, cache, log=True)
+        torch.save({"row0": lay.row0, "rows": lay.rows, "logits": outs},
+                   f"{out}/{tag.replace(' ', '_')}_r{rank}.pt")
+        res[tag] = {"logs_ok": all(logs_ok), "t0": lay.t0}
+        del model, cache
+    return res
+
+
+def grid_worker(rank: int, sizes: tuple, init: str, out: str,
+                mode: str = "grid") -> None:
     """One rank of phase 25's grid, on the one card: ``python3
     chip_smoke.py --grid-rank R --grid DxM --grid-init URL --grid-dir
     DIR``.  On the (1,2) grid the full-width olmoe-1b-7b run
     (``grid_full``), then on either grid the smoke steps
-    (``grid_smoke``); writes ``grid<DxM>_rank<R>.json`` with its launches."""
+    (``grid_smoke``) and serving (``grid_smoke_decode``); writes
+    ``grid<DxM>_rank<R>.json`` with its launches.  With ``--grid-mode
+    decode``, a rank of phase 26 instead (``decode_full``)."""
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=math.prod(sizes),
                             timeout=timedelta(seconds=GRID_TIMEOUT))
@@ -2621,15 +2726,22 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str) -> None:
         grid = mesh_lib.make_grid(sizes)
         zero_counts()
         res = {}
-        if sizes == GRID_FULL:
+        if mode == "decode":
+            res = decode_full(grid, rank, out)
+        elif sizes == GRID_FULL:
             res["full"] = grid_full(grid, rank, out)
             full = Counter(res["full"]["forward_launches"])
             for c in res["full"]["launches"]:
                 full.update(c)
             zero_counts()
-        res["smoke"] = grid_smoke(grid, rank, sizes, out)
-        res["launches"] = counts()
-        if sizes == GRID_FULL:
+        if mode == "decode":
+            res["launches"] = dict(Counter(res["prefill_launches"])
+                                   + Counter(res["decode_launches"]))
+        else:
+            res["smoke"] = grid_smoke(grid, rank, sizes, out)
+            res["decode"] = grid_smoke_decode(grid, rank, sizes, out)
+            res["launches"] = counts()
+        if sizes == GRID_FULL and mode != "decode":
             for k, n in full.items():
                 res["launches"][k] += n
         name = "x".join(map(str, sizes))
@@ -2639,16 +2751,17 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str) -> None:
         dist.destroy_process_group()
 
 
-def start_grid(sizes: tuple, out: str) -> tuple:
-    """Start the ranks of a grid of ``sizes`` on this card: (sizes,
-    processes, log files)."""
+def start_grid(sizes: tuple, out: str, mode: str = "grid") -> tuple:
+    """Start the ranks of a grid of ``sizes`` on this card (``grid_worker``
+    in ``mode``): (sizes, processes, log files)."""
     n = math.prod(sizes)
     name = "x".join(map(str, sizes))
     init = f"tcp://127.0.0.1:{free_port()}"
     files = [open(f"{out}/grid{name}_rank{k}.log", "w") for k in range(n)]
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--grid-rank",
-         str(k), "--grid", name, "--grid-init", init, "--grid-dir", out],
+         str(k), "--grid", name, "--grid-init", init, "--grid-dir", out,
+         "--grid-mode", mode],
         stdout=files[k], stderr=subprocess.STDOUT, env=src_env())
         for k in range(n)]
     return sizes, procs, files
@@ -2755,9 +2868,319 @@ def phase_grid() -> dict[str, int]:
                       f"|x|) {worst:.4f} (tol {STEP_TOL:.0e})")
                 if not (loss_ok and worst <= 1.0):
                     bad.append(tag)
+        for sizes, rks in ((GRID_FULL, ranks[:2]), ((2, 2), ranks[2:])):
+            bad += judge_smoke_decode(sizes, rks, out)
     if bad:
         raise AssertionError(f"phase 25 failed: {bad}")
     print(f"grid: phase 25 took {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
+def judge_smoke_decode(sizes: tuple, ranks: list[dict], out: str) -> list:
+    """Each rank's smoke serving logits (``grid_smoke_decode``) within
+    STEP_TOL of max|·| of one process's over its rows, its collectives
+    ``step_log``'s; at a batch of 1 some rank's rows all past the
+    prompt.  Returns the tags that failed."""
+    bad = []
+    for tag, arch, B in grid_decode_cells(sizes):
+        worst, idle = 0.0, False
+        for k, rk in enumerate(ranks):
+            got = torch.load(f"{out}/{tag.replace(' ', '_')}_r{k}.pt")
+            want = grid_one_process_decode(arch, B, got["row0"],
+                                           got["rows"])
+            worst = max([worst] + [worst_scaled(g, w, STEP_TOL)
+                                   for g, w in zip(got["logits"], want)])
+            idle |= rk["decode"][tag]["t0"] > GRID_PROMPT
+            if not rk["decode"][tag]["logs_ok"]:
+                bad.append(f"{tag} rank {k} log")
+        print(f"grid smoke {tag}: prefill of {GRID_PROMPT} and "
+              f"{GRID_DECODE} decode steps on every rank, worst |d| / (tol "
+              f"max + tol |x|) {worst:.4f} (tol {STEP_TOL:.0e}) against one "
+              f"process over the rank's rows; a rank with no valid row at "
+              f"the first step: {idle}")
+        if worst > 1.0 or (B == 1 and not idle):
+            bad.append(tag)
+    return bad
+
+
+_DECODE_ONE: dict = {}
+
+
+def grid_one_process_decode(arch: str, B: int, row0: int,
+                            rows: int) -> list:
+    """One process's smoke serving (``smoke_decode``) of rows ``row0 ..
+    row0+rows`` of the grid's batch of ``B``, on the card."""
+    key = (arch, B, row0, rows)
+    if key not in _DECODE_ONE:
+        model = grid_smoke_model(arch, RunConfig())
+        tokens = grid_tokens(arch)[:B][row0:row0 + rows]
+        _DECODE_ONE[key], _ = smoke_decode(
+            model, tokens, model.init_cache(rows, GRID_S))
+    return _DECODE_ONE[key]
+
+
+# ----------------------------------------------------------------------
+# deepseek-7b at full width with JAX's decode-cache layout (phase 26)
+# ----------------------------------------------------------------------
+PHASE4_FILE = "phase4_reference.pt"
+DECODE_GRID = (1, 2)
+
+
+def decode_cache_want(cfg, batch: int, max_len: int) -> int:
+    """A rank's cache bytes on DECODE_GRID by the block arithmetic: every
+    layer's k and v, its rows of the batch (over "data") and of T (over
+    "model"), every KV head, in bf16: 30 x 4 x 528 x 32 x 128 x 2 x 2 =
+    1,038,090,240 for phase 4's serving shape."""
+    d, m = DECODE_GRID
+    return (cfg.n_layers * (batch // d) * (max_len // m) * cfg.n_kv_heads
+            * cfg.head_dim * 2 * 2)
+
+
+def decode_full(grid, rank: int, out: str) -> dict:
+    """deepseek-7b at full width on a rank of the (1,2) grid (bf16, seed
+    0's draws, as phase 4 serves it), teacher-forced on phase 4's tokens:
+    the cache's bytes against the block arithmetic; a one-call prefill of
+    phase 4's prompts (K1's launches and heads) and a decode step on each
+    of phase 4's greedy tokens, each call's model-group collectives
+    against ``step_log``; the times and the peak.  Rank 0 saves its
+    last-position prefill logits and each step's."""
+    ref = torch.load(f"{out}/{PHASE4_FILE}")
+    cfg = configs.get(SERVE_ARCH)
+    B, P, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    t0 = time.perf_counter()
+    model, requests = serve.setup(cfg, B, P, "cuda", grid=grid)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0}
+    prompts = requests["tokens"]
+    lay = model.cache_layout(B, P + gen)
+    rows = slice(lay.row0, lay.row0 + lay.rows)
+    res["same_prompts"] = torch.equal(prompts.cpu(), ref["prompts"][rows])
+    tokens = ref["tokens"][rows].to(prompts.device)
+    heads = Counter()
+    launch_fa = ops._launch_flash
+
+    def k1(q, *a):
+        heads[str(q.shape[2])] += 1
+        return launch_fa(q, *a)
+
+    ops._launch_flash = k1
+    logs_ok = []
+
+    def call(cache, t, i):
+        model.tp.comm.log = []
+        logits, _ = model.decode_step(cache, t, i)
+        got = Counter((k, str(key)) for k, key in model.tp.comm.log)
+        want = {(k, str(key)): n for (k, key), n in
+                model_axis.step_log(model, cache, i).items()}
+        logs_ok.append(dict(got) == want)
+        res.setdefault("logs", {})["prefill" if i == 0 else "step"] = {
+            f"{k} {key}": n for (k, key), n in got.items()}
+        return logits[:, -1].cpu()
+    try:
+        with torch.inference_mode():
+            # warm-up request (cuBLAS handles, allocator), as phase 4's
+            serve.generate(model, dict(requests, tokens=prompts[:, :64]), 2,
+                           batch=B)
+            cache = model.init_cache(B, P + gen)
+            res["cache_bytes"] = sum(t.numel() * t.element_size()
+                                     for seg in cache for c in seg
+                                     for d in c.values()
+                                     for t in d.values())
+            res["cache_want"] = decode_cache_want(cfg, B, P + gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            heads.clear()
+            t0 = time.perf_counter()
+            prefill = call(cache, prompts, 0)
+            torch.cuda.synchronize()
+            res["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            res["prefill_launches"], res["heads"] = counts(), dict(heads)
+            zero_counts()
+            steps = []
+            t0 = time.perf_counter()
+            for t in range(gen):
+                steps.append(call(cache, tokens[:, t:t + 1], P + t))
+            torch.cuda.synchronize()
+            res["decode_ms"] = 1e3 * (time.perf_counter() - t0) / gen
+            res["decode_launches"] = counts()
+            res["peak"] = torch.cuda.max_memory_allocated()
+            last = (tokens[:, gen - 1:gen], P + gen - 1)
+            capture_merge(model, cache, *last, rank, out)
+            planted = dropped_step(model, cache, *last)
+    finally:
+        ops._launch_flash = launch_fa
+    res["logs_ok"] = all(logs_ok)
+    if rank == 0:
+        torch.save({"prefill_last": prefill, "steps": torch.stack(steps, 1),
+                    "dropped": planted}, f"{out}/decode_grid_logits.pt")
+    del model, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def capture_merge(model: Model, cache, tok: torch.Tensor, index: int,
+                  rank: int, out: str) -> None:
+    """Decode step ``index`` again (its row written again with the same
+    values), saving layer 0's split attention to ``merge_r<rank>.pt``
+    for ``judge_merge``: the query the rank scores (every head), its rows
+    of k and v and where they start, the step's position and valid
+    length, its partial (m, l, o) and the merged output."""
+    seen = {}
+    partial, merge = attn.sdpa_partial, model_axis.softmax_merge
+
+    def part(q, k, v, **kw):
+        got = partial(q, k, v, **kw)
+        if not seen:
+            seen.update(q=q, k=k, v=v, t0=kw["t0"],
+                        pos=int(kw["q_positions"][0]),
+                        valid=int(kw["k_valid_len"][0]),
+                        m=got[0], l=got[1], o=got[2])
+        return got
+
+    def merged(comm, m, l, o, *a, **kw):
+        got = merge(comm, m, l, o, *a, **kw)
+        seen.setdefault("merged", got)
+        return got
+
+    attn.sdpa_partial, model_axis.softmax_merge = part, merged
+    try:
+        model.decode_step(cache, tok, index)
+    finally:
+        attn.sdpa_partial, model_axis.softmax_merge = partial, merge
+    torch.save({k: v.cpu() if torch.is_tensor(v) else v
+                for k, v in seen.items()}, f"{out}/merge_r{rank}.pt")
+
+
+def dropped_step(model: Model, cache, tok: torch.Tensor,
+                 index: int) -> torch.Tensor:
+    """Decode step ``index`` with a fault planted: rank 1 of the merge
+    hands in an empty partial (m = −1e30, l = o = 0) in every layer, as
+    a merge that lost its partial would.  Its last-position logits on
+    the CPU (the cache's row ``index`` is left as this step wrote it:
+    nothing reads it after)."""
+    merge = model_axis.softmax_merge
+
+    def drop(comm, m, l, o, *a, **kw):
+        if comm.rank == 1:
+            m = torch.full_like(m, attn.NEG_INF)
+            l, o = torch.zeros_like(l), torch.zeros_like(o)
+        return merge(comm, m, l, o, *a, **kw)
+
+    model_axis.softmax_merge = drop
+    try:
+        logits, _ = model.decode_step(cache, tok, index)
+    finally:
+        model_axis.softmax_merge = merge
+    return logits[:, -1].cpu()
+
+
+def judge_merge(out: str, n: int) -> dict:
+    """Layer 0's merged attention of ``capture_merge`` on each of ``n``
+    ranks, against an fp64 softmax of the same query over every rank's
+    rows joined (causal on the step's position, rows past its valid
+    length masked): the worst max|d| / max|want| of the ranks, and the
+    same measure of two faults planted in the same partials: rank 1's
+    dropped (rank 0's o / l alone) and the exp(m − max) rescale skipped
+    (the ranks' o and l summed as they are)."""
+    caps = sorted((torch.load(f"{out}/merge_r{k}.pt") for k in range(n)),
+                  key=lambda c: c["t0"])
+    q = caps[0]["q"].double()
+    k = torch.cat([c["k"] for c in caps], 1).double()
+    v = torch.cat([c["v"] for c in caps], 1).double()
+    G = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)
+    scores = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(q.shape[-1])
+    rows = torch.arange(k.shape[1])
+    keep = (rows <= caps[0]["pos"]) & (rows < caps[0]["valid"])
+    scores = scores.masked_fill(~keep, -math.inf)
+    want = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, -1), v)
+
+    def err(got):
+        return ((got.double() - want).abs().max()
+                / want.abs().max()).item()
+
+    def norm(o, l):
+        return o / l.transpose(1, 2)[..., None]
+    return {"err": max(err(c["merged"]) for c in caps),
+            "dropped": err(norm(caps[0]["o"], caps[0]["l"])),
+            "no_rescale": err(norm(sum(c["o"] for c in caps),
+                                   sum(c["l"] for c in caps))),
+            "rows": k.shape[1], "valid": caps[0]["valid"],
+            "heads": q.shape[2]}
+
+
+def phase_grid_decode(out: str) -> dict[str, int]:
+    """Phase 26: deepseek-7b at full width on a (1,2) grid of two gloo
+    ranks on this card, each rank its block of JAX's decode-cache layout
+    (all 4 rows, 528 of the 1056 cache rows, every KV head), teacher-forced
+    on phase 4's run (``decode_full``).  Judged as phase 4 judges its two
+    paths: the grid's last-position prefill logits and each step's within
+    AGREE_VS_PLAIN_ERR times phase 4's plain path's error (against its
+    fp32 reference) of phase 4's logits.  The merge at these shapes in
+    fp32 (``judge_merge``): within STEP_TOL, and each planted fault
+    beyond it; the logits of a step with rank 1's partial dropped
+    (``dropped_step``) beyond the logits' bound.  Returns the
+    launches."""
+    ref = torch.load(f"{out}/{PHASE4_FILE}")
+    t0 = time.perf_counter()
+    ranks = finish_grid(start_grid(DECODE_GRID, out, "decode"), out)
+    cfg = configs.get(SERVE_ARCH)
+    L, H, tp = cfg.n_layers, cfg.n_heads, DECODE_GRID[-1]
+    bad, launches = [], Counter()
+    for k, rk in enumerate(ranks):
+        launches.update(rk["launches"])
+        print(f"grid decode {SERVE_ARCH} 1x2 rank {k}: cache "
+              f"{rk['cache_bytes']} B (the block arithmetic "
+              f"{rk['cache_want']} B); peak {rk['peak'] / 2**30:.3f} GiB; "
+              f"init {rk['init_s']:.1f} s; prefill {rk['prefill_ms']:.2f} "
+              f"ms, decode {rk['decode_ms']:.3f} ms a step (two ranks "
+              f"share the card: not a speed); launches: prefill "
+              f"{rk['prefill_launches']}, K1 heads {rk['heads']}, decode "
+              f"{rk['decode_launches']} over {SERVE_GEN} steps; model-group "
+              f"collectives {rk['logs']} (as sync.model_axis.step_log: "
+              f"{rk['logs_ok']}); prompts phase 4's: {rk['same_prompts']}")
+        if not (rk["cache_bytes"] == rk["cache_want"]
+                and rk["prefill_launches"] == {"K1": L, "K2": 0, "K3": 0}
+                and rk["heads"] == {str(H // tp): L}
+                and rk["decode_launches"] == {"K1": 0, "K2": 0, "K3": 0}
+                and rk["logs_ok"] and rk["same_prompts"]):
+            bad.append(f"rank {k}")
+    got = torch.load(f"{out}/decode_grid_logits.pt")
+    bound = AGREE_VS_PLAIN_ERR * ref["rel_plain"]
+    pre = rel_err(got["prefill_last"].float(), ref["prefill_last"].float())
+    steps = [rel_err(got["steps"][:, t].float(), ref["steps"][:, t].float())
+             for t in range(got["steps"].shape[1])]
+    finite = bool(torch.isfinite(got["steps"]).all()
+                  and torch.isfinite(got["prefill_last"]).all())
+    print(f"grid decode {SERVE_ARCH} 1x2 bf16 logits against phase 4's "
+          f"(limit {AGREE_VS_PLAIN_ERR} x phase 4's plain path's error "
+          f"{ref['rel_plain']:.4e} = {bound:.4e}; phase 4's kernel path "
+          f"against its plain path {ref['rel_kernel_plain']:.4e}): prefill "
+          f"last position {pre:.4e}; {len(steps)} teacher-forced steps "
+          f"{min(steps):.4e} to {max(steps):.4e}; finite {finite}")
+    if not (finite and pre <= bound and max(steps) <= bound):
+        bad.append("logits")
+    dropped = rel_err(got["dropped"].float(),
+                      ref["steps"][:, -1].float())
+    print(f"grid decode planted fault (rank 1's partial dropped in every "
+          f"layer, last step): logits {dropped:.4e} from phase 4's, beside "
+          f"the bound {bound:.4e} (must lie beyond it)")
+    if not dropped > bound:
+        bad.append("the logits judge misses a dropped partial")
+    mg = judge_merge(out, len(ranks))
+    print(f"grid decode merge in fp32, layer 0 of the last step ("
+          f"{mg['heads']} heads over {mg['rows']} rows, {mg['valid']} "
+          f"valid) against an fp64 softmax over both ranks' rows: "
+          f"{mg['err']:.4e} of max|.| (limit {STEP_TOL}); planted faults "
+          f"in the same partials: rank 1's dropped {mg['dropped']:.4e}, "
+          f"rescale skipped {mg['no_rescale']:.4e}")
+    if not (mg["err"] <= STEP_TOL and mg["dropped"] > STEP_TOL
+            and mg["no_rescale"] > STEP_TOL):
+        bad.append("merge")
+    if bad:
+        raise AssertionError(f"phase 26 failed: {bad}")
+    print(f"grid decode: phase 26 took {time.perf_counter() - t0:.1f} s")
     return dict(launches)
 
 
@@ -2782,10 +3205,9 @@ def grid_one_process(arch: str, d: int) -> dict:
     return _ONE_PROCESS[arch, d]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 1
+def main(run_dir: str) -> int:
+    """Every phase in turn; ``run_dir`` holds what one phase hands a
+    later one (phase 4's reference for phase 26)."""
     t_start = time.perf_counter()
     seconds: dict[str, float] = {}
 
@@ -2799,7 +3221,7 @@ def main() -> int:
     card = timed("1 box, builds", phase_box)
     k1 = timed("2 K1", phase_k1)
     timed("3-4 deepseek-7b", phase_small, SERVE_ARCH)
-    launches = Counter(timed("3-4 deepseek-7b", phase_serve))
+    launches = Counter(timed("3-4 deepseek-7b", phase_serve, run_dir))
     k2 = timed("5 K2", phase_k2)
     timed("6 duality", phase_duality)
     launches.update(timed("7 mamba2-130m", phase_serve_ssm))
@@ -2827,6 +3249,7 @@ def main() -> int:
     launches.update(timed("22-23 whisper", phase_serve_whisper))
     timed("24 estimate", phase_estimate, peaks, fsdp_peak, card)
     launches.update(timed("25 grid", phase_grid))
+    launches.update(timed("26 grid decode", phase_grid_decode, run_dir))
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]
@@ -2860,8 +3283,17 @@ if __name__ == "__main__":
         p.add_argument("--grid", required=True)
         p.add_argument("--grid-init", required=True)
         p.add_argument("--grid-dir", required=True)
+        p.add_argument("--grid-mode", default="grid",
+                       choices=("grid", "decode"))
         a = p.parse_args()
         grid_worker(a.grid_rank, mesh_lib.parse(a.grid), a.grid_init,
-                    a.grid_dir)
+                    a.grid_dir, a.grid_mode)
         sys.exit(0)
-    sys.exit(main())
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        sys.exit(1)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        sys.exit(main(run_dir))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)

@@ -45,7 +45,12 @@ rank 0 of that grid (``launch.mesh``): it holds its slices of what JAX's
 rule splits (``launch.sharding``), runs the model group's tensor and
 expert parallelism (each collective counted by a ``_TracedRanks`` of that
 group) and the data group's gradient sync, and takes JAX's
-``batch_axes``; a cell whose JAX choice is ``seq_shard`` is a skip.
+``batch_axes``.  A decode cell holds the rank's block of JAX's cache
+layout (``Model.init_cache``: B over the data axes, T over "model", or
+over every axis where B stays whole) and counts the gathers and the
+softmax merge of its split attention on the model (or world) group.  A
+train or prefill cell whose JAX choice is ``seq_shard`` is a skip; a
+decode cell runs unsplit there, as JAX's does (``seq_split``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
@@ -147,6 +152,16 @@ def default_run(cfg: ArchConfig, overrides: Optional[dict] = None,
     if overrides:
         run = dataclasses.replace(run, **overrides)
     return run, jax_run
+
+
+def seq_split(shape: ShapeConfig, mesh: tuple[int, ...]) -> bool:
+    """Whether JAX's ``seq_shard`` splits the cell's input over "model":
+    its ``_embed_inputs`` constrains only an input whose length the
+    "model" axis divides (``src/repro/models/model.py:342-343``), and a
+    decode step's one token is divided by no "model" axis of more than
+    one rank, so a decode cell runs unsplit."""
+    n = 1 if shape.kind == "decode" else shape.seq_len
+    return mesh[-1] > 1 and n % mesh[-1] == 0
 
 
 def rank_batch(global_batch: int, mesh: tuple[int, ...],
@@ -322,8 +337,14 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
                     model.forward(inputs)
             else:
                 with torch.no_grad():
-                    tokens, cache, index = decode_specs(model, cfg, shape,
-                                                        batch)
+                    # on a grid the cache is the global batch's block
+                    tokens, cache, index = decode_specs(
+                        model, cfg, shape, None if grid is not None
+                        else batch)
+                    if tokens.shape[0] != batch:
+                        raise ValueError(
+                            f"{tuple(mesh)}: the cache's rows "
+                            f"{tokens.shape[0]}, the batch rule's {batch}")
                     enc_out = (torch.zeros(
                         (batch, cfg.max_source_positions, cfg.d_model),
                         dtype=torch.bfloat16) if cfg.encoder_layers
@@ -335,6 +356,11 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
         breakdown = dict(ranks.bytes)
         for kind, n in grid.model.bytes.items():
             breakdown[f"model {kind}"] = n
+        if grid.world is not ranks:
+            # a decode cache whose batch stays whole splits T over every
+            # rank: its merge is the world's
+            for kind, n in grid.world.bytes.items():
+                breakdown[f"world {kind}"] = n
     elif ranks is not None:
         breakdown = dict(ranks.bytes)
     else:
@@ -374,7 +400,8 @@ def trace_cell(arch: str, shape_name: str, *, world: int = WORLD,
     step of the cell at ``world`` data-parallel ranks, or on a grid of
     ``mesh`` (its sizes: ``(16, 16)`` is JAX's production mesh), measured,
     as a record.  A cell whose JAX choice on ``mesh`` needs ``seq_shard``
-    (unported) is a skip record naming it.  ``cfg`` replaces the arch's
+    and whose input it splits (``seq_split``; unported) is a skip record
+    naming it.  ``cfg`` replaces the arch's
     config (a smoke config in the tests)."""
     cfg = cfg or configs.get(arch)
     shape = SHAPES[shape_name]
@@ -382,7 +409,7 @@ def trace_cell(arch: str, shape_name: str, *, world: int = WORLD,
         world = math.prod(mesh)
         run, jax_run = default_run(cfg, run_overrides, shape=shape,
                                    mesh=mesh)
-        if jax_run["seq_shard"]:
+        if jax_run["seq_shard"] and seq_split(shape, mesh):
             return {"arch": arch, "shape": shape_name, "ok": False,
                     "mesh": "x".join(map(str, mesh)), "jax_run": jax_run,
                     "skipped": "JAX's choice here is seq_shard (sequence "

@@ -14,6 +14,10 @@ device order: rank ``(pod·D + data)·M + model``.  A ``Grid`` holds three
   batch split, ``RunConfig.fsdp``, the gradient sync);
 - ``world``: every rank (``batch_axes="all"``; rank 0 writes).
 
+``Grid.over(axes)`` names the comm over a spec entry's axes: a decode
+cache's T is split over ``model``, or over ``world`` where the batch
+stays whole (``launch.sharding.cache_block``).
+
 ``stand_in`` gives the same sizes and indices with no process group: the
 dry run and the rule's tests read a rank of a 16×16 grid from it.
 """
@@ -70,6 +74,19 @@ class Grid:
     @property
     def dp(self) -> int:
         return n_chips(self) // self.tp
+
+    def over(self, axes: Sequence[str]) -> Optional[shard.Comm]:
+        """The comm of the ranks that split a decode cache's T over
+        ``axes``: ``model`` for ("model",), ``world`` for every axis;
+        None where the axes hold one rank (nothing is split)."""
+        axes = tuple(axes)
+        if math.prod(self.shape[a] for a in axes) == 1:
+            return None
+        if axes == ("model",):
+            return self.model
+        if axes == self.axis_names:
+            return self.world
+        raise ValueError(f"{self!r}: no comm over {axes}")
 
     def __repr__(self) -> str:
         sizes = "x".join(str(self.shape[a]) for a in self.axis_names)

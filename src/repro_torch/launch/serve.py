@@ -13,6 +13,12 @@ in the latent space.  An encoder-decoder (whisper) encodes its audio
 frames once a request batch (non-causal K1 on the "kernel" path) and
 hands the states to every prefill and decode step's cross-attention.
 
+On a grid of ranks (``setup(..., grid=)``, ``launch.mesh``) each rank
+serves its rows of the batch over its block of JAX's decode-cache layout
+(``Model.init_cache``): every rank calls each function here, and
+``generate`` takes the global batch.  The CLI serves one process, as
+JAX's ``serve.main`` runs on one device.
+
     python -m repro_torch.launch.serve --device cpu          # smoke config
     python -m repro_torch.launch.serve --full --prompt-len 4096   # on the card
     python -m repro_torch.launch.serve --arch whisper-large-v3 --device cpu
@@ -58,13 +64,16 @@ def full_config(arch: str) -> ArchConfig:
 
 
 def setup(cfg: ArchConfig, batch: int, prompt_len: int, device=None,
-          dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+          dtype: torch.dtype = torch.bfloat16, seed: int = 0, *,
+          grid=None):
     """A model with random weights and a request batch: {"tokens": random
     prompts [batch, prompt_len]}, and for an encoder-decoder
     "audio_embeds" [batch, max_source_positions, d_model] (standard
     normal, in the model dtype), all drawn from one generator seeded with
-    ``seed``."""
-    model = Model(cfg, dtype=dtype, device=device)
+    ``seed``.  With ``grid`` the model is a rank's of that grid (its
+    slices of the same draws) and the requests its rows of the batch
+    (``Model.cache_layout``): ``batch`` stays the global batch."""
+    model = Model(cfg, dtype=dtype, device=device, grid=grid)
     g = torch.Generator(device=model.device).manual_seed(seed)
     model.init(g)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
@@ -74,20 +83,15 @@ def setup(cfg: ArchConfig, batch: int, prompt_len: int, device=None,
         requests["audio_embeds"] = torch.randn(
             (batch, cfg.max_source_positions, cfg.d_model), generator=g,
             device=model.device).to(dtype)
+    if grid is not None:
+        rows = model.cache_layout(batch, prompt_len)
+        requests = {k: v[rows.row0:rows.row0 + rows.rows]
+                    for k, v in requests.items()}
     return model, requests
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
-
-
-def make_serve_step(model: Model, enc_out: Optional[torch.Tensor] = None):
-    """One decode step: (cache, tokens [B,S], index) → (next token [B,1], cache)."""
-    def serve_step(cache, tokens, index):
-        logits, cache = model.decode_step(cache, tokens, index,
-                                          enc_out=enc_out)
-        return _greedy(logits), cache
-    return serve_step
 
 
 def encode(model: Model, requests: dict) -> Optional[torch.Tensor]:
@@ -107,26 +111,39 @@ def prefill(model: Model, cache, prompts: torch.Tensor,
 
 
 def decode(model: Model, cache, tok: torch.Tensor, start: int, steps: int,
-           enc_out: Optional[torch.Tensor] = None):
+           enc_out: Optional[torch.Tensor] = None,
+           logits: Optional[list] = None):
     """Greedy-decode ``steps`` tokens after ``tok``, which sits at ``start``.
+    Each step's logits [B,1,V] are appended to ``logits`` where given.
 
     Returns (tokens [B, steps], cache)."""
-    step = make_serve_step(model, enc_out)
     out = []
     for t in range(start, start + steps):
-        tok, cache = step(cache, tok, t)
+        step_logits, cache = model.decode_step(cache, tok, t,
+                                               enc_out=enc_out)
+        tok = _greedy(step_logits)
+        if logits is not None:
+            logits.append(step_logits)
         out.append(tok)
     return torch.cat([tok[:, :0], *out], dim=1), cache
 
 
-def generate(model: Model, requests: dict, gen: int) -> torch.Tensor:
+def generate(model: Model, requests: dict, gen: int,
+             batch: Optional[int] = None) -> torch.Tensor:
     """Serve a request batch (``setup``'s dict: prompts [B,P] under
     ``tokens``, and any audio frames): ``gen`` greedy tokens each,
-    [B,gen]."""
+    [B,gen].  ``batch``: the global batch the cache is laid out from
+    (``Model.init_cache``); one process's default, the prompts' rows.  A
+    grid's rank serves its rows and must be given it."""
     prompts = requests["tokens"]
     B, P = prompts.shape
+    if batch is None:
+        if model.grid is not None:
+            raise ValueError(f"{model.grid!r}: generate takes the global "
+                             f"batch (the prompts are this rank's rows)")
+        batch = B
     enc_out = encode(model, requests)
-    cache = model.init_cache(B, P + gen)
+    cache = model.init_cache(batch, P + gen)
     tok, _, cache = prefill(model, cache, prompts, enc_out)
     rest, _ = decode(model, cache, tok, P, gen - 1, enc_out)
     return torch.cat([tok, rest], dim=1)

@@ -9,7 +9,9 @@ Strategy, as JAX's:
 - DP over ("pod", "data"): the batch; with ``RunConfig.fsdp`` also the
   parameters' non-TP dimension.
 - Decode caches: the batch over dp where it divides, the cache sequence
-  over "model" (and over every axis when the batch is 1).
+  over "model" (and over every axis when the batch is 1).  A rank keeps
+  its block of each leaf (``cache_block``) and the model attends over it
+  (``models.attention``).
 
 Every entry is divisibility-guarded (``_maybe``): a dimension the axis
 does not divide stays replicated.  A spec is a tuple, one entry a
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 
@@ -189,6 +191,10 @@ def batch_spec(shape: Sequence[int], mesh,
     return ((tuple(axes),) + rest) if axes else (None,) + rest
 
 
+# the decode-cache leaves with a sequence axis: [R, B, T, ...]
+SEQ_LEAVES = ("k", "v", "ckv", "kr")
+
+
 def cache_spec(names: Sequence[str], shape: Sequence[int], cfg: ArchConfig,
                mesh) -> Spec:
     """A decode cache leaf's spec ([R, B, T, ...] attention, [R, B, ...]
@@ -196,7 +202,7 @@ def cache_spec(names: Sequence[str], shape: Sequence[int], cfg: ArchConfig,
     over every axis where B stays whole (one long stream)."""
     dp = dp_axes(mesh)
     entries: list = [None] * len(shape)
-    if names[-1] in ("k", "v", "ckv", "kr"):
+    if names[-1] in SEQ_LEAVES:
         b_ax = _maybe(mesh, dp, shape[1])
         entries[1] = b_ax
         seq = ("model",) if b_ax else tuple(mesh.axis_names)
@@ -216,6 +222,71 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple[int, ...]:
     """One rank's shape of a tensor of ``shape`` laid out by ``spec``."""
     return tuple(d // _axsize(mesh, axes_of(e) or None)
                  for d, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def index_along(mesh, rank: int, axes: Sequence[str]) -> int:
+    """Which block of a dimension split over ``axes`` the rank ``rank`` of
+    ``mesh`` holds: its coordinates (ranks row-major over the mesh's
+    axes, as JAX orders its devices) flattened over ``axes``, the first
+    major, as JAX flattens a tuple entry of a spec."""
+    coords, r = {}, rank
+    for a in reversed(mesh.axis_names):
+        coords[a], r = r % mesh.shape[a], r // mesh.shape[a]
+    out = 0
+    for a in axes:
+        out = out * mesh.shape[a] + coords[a]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheBlock:
+    """A grid rank's block of a decode-cache leaf of global shape
+    ``full``: its ``shape``, the first global batch row (``row0``) and
+    cache row (``t0``) it holds, the axes that split its T (``t_axes``,
+    ``()``: whole) and the comm of the ranks over them (``t_comm``,
+    ``Grid.over``; None: whole).  ``Model.init_cache``'s ``layout`` is a
+    sequence leaf's ([R, B, T, ...]): its ``rows`` of the global
+    ``batch``, its ``t_len`` of the cache's ``max_len`` rows."""
+    full: tuple[int, ...]
+    shape: tuple[int, ...]
+    row0: int
+    t0: int
+    t_axes: tuple[str, ...]
+    t_comm: Any = None
+
+    @property
+    def batch(self) -> int:
+        return self.full[1]
+
+    @property
+    def rows(self) -> int:
+        return self.shape[1]
+
+    @property
+    def max_len(self) -> int:
+        return self.full[2]
+
+    @property
+    def t_len(self) -> int:
+        return self.shape[2]
+
+
+def cache_block(names: Sequence[str], shape: Sequence[int],
+                cfg: ArchConfig, grid) -> CacheBlock:
+    """The block of the cache leaf at ``names`` (global ``shape``) that
+    ``grid``'s rank (a ``launch.mesh.Grid``) keeps under ``cache_spec``:
+    B over the data axes where they divide it, T over "model" or, where
+    B stays whole, over every axis; a dimension its axes do not divide
+    stays whole (JAX's ``_maybe``), as do an SSM leaf's dimensions past
+    B."""
+    spec = cache_spec(names, shape, cfg, grid)
+    local = local_shape(shape, spec, grid)
+    b_axes = axes_of(spec[1]) if len(shape) > 1 else ()
+    t_axes = axes_of(spec[2]) if names[-1] in SEQ_LEAVES else ()
+    row0 = index_along(grid, grid.rank, b_axes) * local[1] if b_axes else 0
+    t0 = index_along(grid, grid.rank, t_axes) * local[2] if t_axes else 0
+    return CacheBlock(tuple(shape), local, row0, t0, t_axes,
+                      grid.over(t_axes) if t_axes else None)
 
 
 # ----------------------------------------------------------------------

@@ -37,12 +37,17 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
 
 def decode_specs(model, cfg: ArchConfig, shape: ShapeConfig,
                  batch: Optional[int] = None):
-    """(tokens [B, 1], the cache of ``model.init_cache(B, seq_len)``, the
-    cache index) for one decode step.  The index is a Python int, as
+    """(tokens [rows, 1], the cache of ``model.init_cache(B, seq_len)``,
+    the cache index) for one decode step.  ``batch`` is B, the global
+    batch ``Model.init_cache`` lays the cache out from (the shape's by
+    default; a data-parallel rank built without a grid passes its own
+    rows, its whole cache); ``rows`` are the rank's rows of it, B for one
+    process (``Model.cache_layout``).  The index is a Python int, as
     ``Model.decode_step`` takes it: the cache's last row, so the step
     attends over the whole cache, as the JAX package's traced index leaves
     every row to the mask."""
     B = shape.global_batch if batch is None else batch
     cache = model.init_cache(B, shape.seq_len)
-    tokens = torch.zeros((B, 1), dtype=torch.int64, device=model.device)
+    rows = cache.layout.rows if cache.layout is not None else B
+    tokens = torch.zeros((rows, 1), dtype=torch.int64, device=model.device)
     return tokens, cache, shape.seq_len - 1

@@ -20,6 +20,19 @@ MLA's cache holds only the compressed latents (kv_lora + rope dims a
 token).  Its decode runs attention in the latent space (the *absorbed*
 form); its train path and its one-call prefill expand the latents to
 per-head k and v and run the kernel at qk head dim 192 / v head dim 128.
+
+On a grid of ranks (``launch.mesh``) a rank's decode cache is its block
+of JAX's ``cache_shardings`` (``launch.sharding.cache_block``): its rows
+of the batch, and of the cache's T where the rule splits it, with every
+KV head (MLA: the latents, which have none).  Its ``layout`` (a
+``launch.sharding.CacheBlock``) tells where its rows sit.  The rank writes the rows of a call that fall
+in its block.  A one-call prefill at index 0 attends over the call's
+fresh k and v (K1, on the rank's heads).  Past index 0 each rank scores
+every head's query (gathered over the model group where the rank
+computed only its own heads) against its own rows, ``sdpa_partial``'s
+running max, denominator and unnormalised output, and
+``sync.model_axis.softmax_merge`` joins the ranks' partials; the rank
+keeps its heads' slice for its row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as _kops
 from repro_torch.models.layers import Params, apply_rope, normal, rmsnorm
+from repro_torch.sync import model_axis
 
 NEG_INF = -1e30
 IMPLS = ("kernel", "plain")
@@ -62,10 +76,24 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
-    k_pos = torch.arange(T, device=q.device)
+    mask = _mask(S, T, q.device, causal, q_positions, k_valid_len)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+def _mask(S: int, T: int, device, causal: bool,
+          q_positions: Optional[torch.Tensor],
+          k_valid_len: Optional[torch.Tensor], t0: int = 0):
+    """The plain path's mask over scores [B,K,G,S,T] (broadcast), or
+    None: causal on the queries' positions against the key rows' global
+    positions ``t0 .. t0+T``, and rows at or past ``k_valid_len``."""
+    k_pos = t0 + torch.arange(T, device=device)
     mask = None
     if causal:
-        q_pos = (torch.arange(S, device=q.device) if q_positions is None
+        q_pos = (torch.arange(S, device=device) if q_positions is None
                  else q_positions)
         if q_pos.dim() == 1:
             mask = (q_pos[:, None] >= k_pos[None, :])[None, None, None]
@@ -74,11 +102,69 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k_valid_len is not None:
         lm = (k_pos[None, :] < k_valid_len[:, None])[:, None, None, None]
         mask = lm if mask is None else mask & lm
+    return mask
+
+
+def _partial(scores: torch.Tensor, mask: Optional[torch.Tensor]):
+    """(running max, denominator, weights) of fp32 ``scores`` over their
+    last axis, masked at -1e30; a masked weight is 0 even where every
+    row is masked (there the max is -1e30 and exp(0) would weigh each
+    masked row 1)."""
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(B, S, H, v.shape[-1])
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    return m, p.sum(dim=-1), p
+
+
+def sdpa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 t0: int, causal: bool,
+                 q_positions: Optional[torch.Tensor] = None,
+                 k_valid_len: Optional[torch.Tensor] = None,
+                 scale: Optional[float] = None):
+    """``sdpa``'s plain masked path over a block of key rows k, v [B,T,K,
+    hd] that starts at global row ``t0``, stopped before the softmax's
+    division: (m, l [B,H,S]: each query's max score and its sum of
+    exp(score − m); o [B,S,H,hd_v]: the exp-weighted sum of v), all
+    fp32, for ``sync.model_axis.softmax_merge``.  The mask takes global
+    positions and ``k_valid_len`` as ``sdpa``'s; a query whose rows here
+    are all masked gets m = −1e30 and l = o = 0."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, K, G, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
+    m, l, p = _partial(scores, _mask(S, T, q.device, causal, q_positions,
+                                     k_valid_len, t0))
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return (m.reshape(B, H, S), l.reshape(B, H, S),
+            o.reshape(B, S, H, v.shape[-1]))
+
+
+def _write(cache: dict, new: dict, idx: int, t0: int) -> None:
+    """Rows ``idx .. idx+S`` of each ``new`` tensor [B,S,...] into the
+    rows of a cache block that starts at global row ``t0`` that they
+    fall on."""
+    T = next(iter(cache.values())).shape[1]
+    S = next(iter(new.values())).shape[1]
+    lo, hi = max(idx, t0), min(idx + S, t0 + T)
+    if lo < hi:
+        for name, t in new.items():
+            cache[name][:, lo - t0:hi - t0] = t[:, lo - idx:hi - idx]
+
+
+def _check_rows(idx: int, S: int, T: int) -> None:
+    if not 0 <= idx <= T - S:
+        raise IndexError(f"cache rows {idx}..{idx + S} exceed its {T} rows")
+
+
+def _my_heads(t: torch.Tensor, heads, n: int) -> torch.Tensor:
+    """This rank's ``n`` heads (axis 2) of a tensor over every head of
+    the model group ``heads``."""
+    return t.narrow(2, heads.rank * n, n)
 
 
 # ----------------------------------------------------------------------
@@ -106,13 +192,16 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               kv_src: Optional[torch.Tensor] = None,
               causal: bool = True,
               use_rope: bool = True,
-              impl: str = "kernel"):
+              impl: str = "kernel",
+              layout=None, heads=None):
     """Self- or cross-attention.  Returns (out, cache).
 
     Train/prefill: cache is None, full sequence.
     Decode: cache = {"k": [B,Tmax,K,hd], "v": ...}; x is [B,S,d] written at
     rows ``cache_index .. cache_index+S`` (a Python int).  The port writes
-    the cache in place and returns the same dict.
+    the cache in place and returns the same dict.  On a grid ``layout``
+    says where the cache's rows sit, and ``heads`` is the model group's
+    comm where ``p`` holds this rank's heads only (module docstring).
     Cross-attention: ``kv_src`` [B,T,d] (encoder states) gives the keys
     and values; no RoPE, no causal mask, no cache.
     """
@@ -145,23 +234,37 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         return out.reshape(B, S, H * hd) @ p["wo"], None
 
     idx = int(cache_index)
-    T = cache["k"].shape[1]
-    if not 0 <= idx <= T - S:
-        raise IndexError(f"cache rows {idx}..{idx + S} exceed its {T} rows")
-    cache["k"][:, idx:idx + S] = k
-    cache["v"][:, idx:idx + S] = v
+    t0 = layout.t0 if layout is not None else 0
+    _check_rows(idx, S, layout.max_len if layout is not None
+                else cache["k"].shape[1])
+    new = {"k": k, "v": v}
+    if heads is not None:
+        # the cache holds every head of its rows
+        new = {n: model_axis.gather_heads(heads, t, "attn.kv")
+               for n, t in new.items()}
+    _write(cache, new, idx, t0)
+    q_pos = idx + torch.arange(S, device=x.device)
+    k_valid = torch.full((B,), idx + S, dtype=torch.int32, device=x.device)
     if idx == 0:
         # index 0: the cache mask is causal attention over the first S rows,
         # so the kernel path takes the whole prompt in one call
-        out = sdpa(q, cache["k"][:, :S].to(q.dtype),
-                   cache["v"][:, :S].to(q.dtype), causal=causal, impl=impl)
+        out = sdpa(q, k, v, causal=causal, impl=impl)
+    elif layout is None or layout.t_comm is None:
+        ck, cv = cache["k"], cache["v"]
+        if heads is not None:
+            ck, cv = _my_heads(ck, heads, K), _my_heads(cv, heads, K)
+        out = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), causal=causal,
+                   q_positions=q_pos, k_valid_len=k_valid, impl=impl)
     else:
-        k_valid = torch.full((B,), idx + S, dtype=torch.int32,
-                             device=x.device)
-        out = sdpa(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                   causal=causal,
-                   q_positions=idx + torch.arange(S, device=x.device),
-                   k_valid_len=k_valid, impl=impl)
+        qa = (q if heads is None
+              else model_axis.gather_heads(heads, q, "attn.q"))
+        m, l, o = sdpa_partial(qa, cache["k"].to(q.dtype),
+                               cache["v"].to(q.dtype), t0=t0,
+                               causal=causal, q_positions=q_pos,
+                               k_valid_len=k_valid)
+        out = model_axis.softmax_merge(layout.t_comm, m, l, o).to(q.dtype)
+        if heads is not None:
+            out = _my_heads(out, heads, H)
     return out.reshape(B, S, H * hd) @ p["wo"], cache
 
 
@@ -263,11 +366,44 @@ def _mla_absorbed(qn, qr, ckv, kr, wk_b, wv_b, *, index: int):
     return torch.einsum("bshl,lhv->bshv", ctx, wv_b.to(ctx.dtype))
 
 
+def _mla_absorbed_split(qn, qr, ckv, kr, wk_b, wv_b, *, index: int,
+                        layout, heads):
+    """``_mla_absorbed`` over a rank's block of the latent cache (rows
+    from ``layout.t0``): every head's latent and rope query (gathered
+    over the model group ``heads`` where the rank computed its own
+    heads) scored against the block's rows in fp32, the causal mask on
+    global positions, the weighted latents merged over
+    ``layout.t_comm`` (``softmax_merge``), then this rank's heads
+    through wv_b.  Returns [B,S,H,vd] of its heads."""
+    S = qn.shape[1]
+    nope, rope_d = qn.shape[-1], qr.shape[-1]
+    H, kl = qn.shape[2], wk_b.shape[0]
+    q_lat = torch.einsum("bshn,lhn->bshl", qn, wk_b)         # [B,S,H,kl]
+    if heads is not None:
+        q = model_axis.gather_heads(
+            heads, torch.cat([q_lat, qr], dim=-1), "attn.q")
+        q_lat, qr = q[..., :kl], q[..., kl:]
+    ckv, kr = ckv.to(qn.dtype).float(), kr.to(qr.dtype).float()
+    scores = (torch.einsum("bshl,btl->bhst", q_lat.float(), ckv)
+              + torch.einsum("bshr,btr->bhst", qr.float(), kr))
+    scores = scores / math.sqrt(nope + rope_d)
+    k_pos = layout.t0 + torch.arange(ckv.shape[1], device=qn.device)
+    q_pos = index + torch.arange(S, device=qn.device)
+    m, l, p = _partial(scores, (q_pos[:, None] >= k_pos[None, :])[None, None])
+    o = torch.einsum("bhst,btl->bshl", p, ckv)
+    ctx = model_axis.softmax_merge(layout.t_comm, m, l, o)
+    if heads is not None:
+        ctx = _my_heads(ctx, heads, H)
+    return torch.einsum("bshl,lhv->bshv", ctx.to(qn.dtype),
+                        wv_b.to(qn.dtype))
+
+
 def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[dict[str, torch.Tensor]] = None,
               cache_index: Optional[int] = None,
-              impl: str = "kernel", enter=None):
+              impl: str = "kernel", enter=None,
+              layout=None, heads=None):
     """Returns (out, cache).  The cache holds the *compressed* latents:
     {"ckv": [B,Tmax,kv_lora], "kr": [B,Tmax,rope_d]}, written in place at
     rows ``cache_index .. cache_index+S`` (a Python int).
@@ -276,7 +412,9 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     "kernel" path).  A cached call at index 0 (one-call prefill) writes
     the latents and runs the same naive path over them, where the JAX
     package runs its absorbed path over the S tokens: the same function.
-    At index > 0 the absorbed decode runs in the latent space.
+    At index > 0 the absorbed decode runs in the latent space; over a
+    rank's block of a split cache (``layout``, ``heads`` as
+    ``gqa_apply``'s), merged over the ranks.
 
     On a grid's model group ``p`` holds this rank's heads (``wq_b`` or
     ``wq``, ``wkv_b`` and ``wo``'s rows) and ``cfg`` their count; the
@@ -311,18 +449,21 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         return out.reshape(B, S, H * vd) @ p["wo"], None
 
     idx = int(cache_index)
-    T = cache["ckv"].shape[1]
-    if not 0 <= idx <= T - S:
-        raise IndexError(f"cache rows {idx}..{idx + S} exceed its {T} rows")
-    cache["ckv"][:, idx:idx + S] = ckv
-    cache["kr"][:, idx:idx + S] = kr
+    _check_rows(idx, S, layout.max_len if layout is not None
+                else cache["ckv"].shape[1])
+    # the latents are every head's: each rank computes them whole
+    _write(cache, {"ckv": ckv, "kr": kr}, idx,
+           layout.t0 if layout is not None else 0)
     if idx == 0:
-        out = _mla_naive(qn, qr, enter(cache["ckv"][:, :S].to(x.dtype)),
-                         enter(cache["kr"][:, :S].to(x.dtype)), wk_b, wv_b,
+        out = _mla_naive(qn, qr, enter(ckv), enter(kr), wk_b, wv_b,
                          positions=pos, impl=impl)
-    else:
+    elif layout is None or layout.t_comm is None:
         out = _mla_absorbed(qn, qr, cache["ckv"], cache["kr"], wk_b, wv_b,
                             index=idx)
+    else:
+        out = _mla_absorbed_split(qn, qr, cache["ckv"], cache["kr"], wk_b,
+                                  wv_b, index=idx, layout=layout,
+                                  heads=heads)
     return out.reshape(B, S, H * vd) @ p["wo"], cache
 
 

@@ -16,13 +16,18 @@ Built on a grid of ranks (``Model(..., grid=)``, ``launch.mesh``), a rank
 holds its slices of what the JAX package's sharding rule splits
 (``launch.sharding``) and runs tensor and expert parallelism over the
 grid's model group (``sync.model_axis``), as JAX's model runs on a mesh.
+Its decode cache is its block of JAX's ``cache_shardings``
+(``launch.sharding.CacheBlock``): its batch rows and, where the rule
+splits it, its rows of the cache's T, every head of them; attention
+merges the ranks' partial softmaxes over their rows.
 
 The Model exposes:
 - ``init(generator)``               → fills the parameters, returns self
 - ``loss(batch)``                   → (scalar loss, metrics) for train_step
 - ``forward(batch)``                → logits (prefill)
 - ``encode(batch)``                 → encoder states (whisper)
-- ``init_cache(batch, max_len)``    → decode cache (nested lists of dicts)
+- ``init_cache(batch, max_len)``    → decode cache (nested lists of dicts;
+                                       on a grid the rank's block of it)
 - ``decode_step(caches, tokens, index, enc_out=None)`` → (logits, caches)
 """
 from __future__ import annotations
@@ -154,6 +159,19 @@ def _rebuild(tree: dict, leaves) -> dict:
     """``tree`` with its tensors replaced, in order, from ``leaves``."""
     return {k: _rebuild(v, leaves) if isinstance(v, dict) else next(leaves)
             for k, v in tree.items()}
+
+
+# ----------------------------------------------------------------------
+# the decode cache on a grid
+# ----------------------------------------------------------------------
+class Caches(list):
+    """``Model.init_cache``'s nested lists of dicts, with the rank's
+    ``layout`` (a sequence leaf's ``launch.sharding.CacheBlock``; None:
+    one process, every row)."""
+
+    def __init__(self, layout: Optional[sharding.CacheBlock]):
+        super().__init__()
+        self.layout = layout
 
 
 # ----------------------------------------------------------------------
@@ -562,10 +580,12 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def _apply_block(self, bp: dict, spec: BlockSpec, x, *,
                      positions=None, cache=None, cache_index=None,
+                     layout: Optional[sharding.CacheBlock] = None,
                      enc_out=None, block: Optional[_Block] = None):
         """One block: (x, the block's MoE aux loss, or None).  On a grid
         ``block`` says which parts run on this rank's slice: those enter
-        through ``tp.enter`` and leave through ``tp.combine``."""
+        through ``tp.enter`` and leave through ``tp.combine``; ``layout``
+        says where the cache's rows sit."""
         cfg, run, tp = self.cfg, self.run, self.tp
         tp_attn = block is not None and block.tp_attn
         lcfg = block.local_cfg if block is not None else cfg
@@ -573,6 +593,7 @@ class Model(nn.Module):
         h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
         if spec.mixer == "attn":
             c = cache.get("attn") if cache else None
+            heads = tp.comm if tp_attn and c is not None else None
             if cfg.attn_type == "mla":
                 enter = ((lambda t: tp.enter(t, "attn")) if tp_attn
                          else None)
@@ -580,7 +601,8 @@ class Model(nn.Module):
                                         lcfg if tp_attn else cfg,
                                         positions=positions, cache=c,
                                         cache_index=cache_index,
-                                        impl=run.attn_impl, enter=enter)
+                                        impl=run.attn_impl, enter=enter,
+                                        layout=layout, heads=heads)
             else:
                 out, _ = attn.gqa_apply(bp["attn"],
                                         tp.enter(h, "attn") if tp_attn
@@ -588,7 +610,8 @@ class Model(nn.Module):
                                         positions=positions, cache=c,
                                         cache_index=cache_index,
                                         causal=spec.causal,
-                                        impl=run.attn_impl)
+                                        impl=run.attn_impl,
+                                        layout=layout, heads=heads)
             if tp_attn:
                 out = tp.combine(out, "attn")
         else:
@@ -676,7 +699,9 @@ class Model(nn.Module):
                          for name, c in caches[si][j].items()}
             x, aux = self._apply_block(
                 bps[j], spec, x, positions=positions,
-                cache=cache, cache_index=cache_index, enc_out=enc_out,
+                cache=cache, cache_index=cache_index,
+                layout=caches.layout if caches is not None else None,
+                enc_out=enc_out,
                 block=blocks[j])
             if aux is not None:
                 total_aux = aux if total_aux is None else total_aux + aux
@@ -827,32 +852,61 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_len: int) -> list:
+    def cache_layout(self, batch_size: int, max_len: int
+                     ) -> Optional[sharding.CacheBlock]:
+        """Where this rank's block of a decode cache of ``batch_size`` ×
+        ``max_len`` sits (None without a grid): JAX's rule on a
+        sequence leaf ``[R, B, T]``.  A decode call's tokens are the
+        cache's rows of the batch: where JAX's batch rule would lay the
+        tokens out otherwise (a prefix of the data axes that alone
+        divides B, or "model" under ``batch_axes="all"``), JAX's step
+        reshards them to the cache's rows."""
+        if self.grid is None:
+            return None
+        return sharding.cache_block(("k",), (1, batch_size, max_len),
+                                    self.cfg, self.grid)
+
+    def init_cache(self, batch_size: int, max_len: int) -> Caches:
         """caches[segment][pattern position] = {"attn": {"k", "v"}}, each
         [R, B, max_len, K, hd] in the model dtype (MLA: {"ckv", "kr"},
         [R, B, max_len, kv_lora] and [R, B, max_len, rope_d]), or {"ssm":
         {"conv", "state"}}: [R, B, W-1, conv_dim] in the model dtype and
         [R, B, H, P, N] in fp32 (an SSM cache does not grow with
-        max_len)."""
-        caches = []
-        kw = dict(dtype=self.dtype, device=self.device)
-        for seg, blocks in zip(self.segments_spec, self.segments):
+        max_len).
+
+        ``batch_size`` is the global batch, as JAX's ``init_cache`` takes
+        it (its rule reads divisibility on it).  On a grid each leaf is
+        this rank's block of JAX's ``cache_shardings``
+        (``launch.sharding.cache_block``): B over the data axes where they
+        divide it, T over "model" (every axis where B stays whole), every
+        KV head; a dimension its axes do not divide stays whole.  The
+        result's ``layout`` says which rows (``cache_layout``); a decode
+        step takes tokens of the rank's rows of the batch.  One process
+        (no grid): the whole cache, ``layout`` None."""
+        caches = Caches(self.cache_layout(batch_size, max_len))
+        meta = dict(dtype=self.dtype, device="meta")
+        for si, seg in enumerate(self.segments_spec):
             seg_caches = []
-            for spec, block in zip(seg.pattern, blocks):
+            for j, spec in enumerate(seg.pattern):
                 if spec.mixer == "attn":
                     init = (attn.mla_cache_init
                             if self.cfg.attn_type == "mla"
                             else attn.gqa_cache_init)
-                    # a rank of the model group caches its own KV heads
-                    name, one = "attn", init(block.local_cfg, batch_size,
-                                             max_len, **kw)
+                    name, one = "attn", init(self.cfg, batch_size, max_len,
+                                             **meta)
                 else:
                     name, one = "ssm", ssm.ssm_cache_init(
-                        self.cfg, batch_size, **kw)
-                seg_caches.append({name: {
-                    k: torch.zeros((seg.repeats,) + v.shape, dtype=v.dtype,
-                                   device=v.device)
-                    for k, v in one.items()}})
+                        self.cfg, batch_size, **meta)
+                leaves = {}
+                for k, v in one.items():
+                    shape = (seg.repeats,) + tuple(v.shape)
+                    if self.grid is not None:
+                        shape = sharding.cache_block(
+                            (str(si), str(j), name, k), shape, self.cfg,
+                            self.grid).shape
+                    leaves[k] = torch.zeros(shape, dtype=v.dtype,
+                                            device=self.device)
+                seg_caches.append({name: leaves})
             caches.append(seg_caches)
         return caches
 
@@ -873,10 +927,24 @@ class Model(nn.Module):
         token-by-token decode (B tokens a call) keeps.  MLA blocks prefill
         at index 0 through K1 on the expanded latents and decode in the
         latent space.  An encoder-decoder model needs ``enc_out``: without
-        it the cross-attention blocks would be skipped."""
+        it the cross-attention blocks would be skipped.
+
+        On a grid ``caches`` is ``init_cache``'s (its ``layout``) and
+        ``tokens`` (and ``enc_out``) hold this rank's rows of the batch;
+        attention over a split T merges the ranks' partials."""
         if self.cfg.encoder_layers and enc_out is None:
             raise ValueError(f"{self.cfg.name} has an encoder: decode_step "
                              f"needs its enc_out (Model.encode)")
+        if self.grid is not None:
+            layout = caches.layout
+            if layout is None:
+                raise ValueError(f"{self.grid!r}: decode_step takes the "
+                                 f"cache of Model.init_cache (its layout)")
+            if tokens.shape[0] != layout.rows:
+                raise ValueError(
+                    f"{self.grid!r}: tokens of {tokens.shape[0]} rows; this "
+                    f"rank's cache holds rows {layout.row0}.."
+                    f"{layout.row0 + layout.rows} of {layout.batch}")
         x = self._whole("embed")[tokens].to(self.dtype)
         x, _ = self._run_segments(x, caches=caches, cache_index=index,
                                   enc_out=enc_out)

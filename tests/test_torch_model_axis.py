@@ -16,7 +16,10 @@ runs the (1,2) grid; ``tests/test_torch_model_axis_2x2.py`` runs the
   ``--xla_force_host_platform_device_count=4``), to 1e-4 of max|·|; the
   two combines equal each other.
 - Serving on the grid (a one-call prefill and a decode step, each rank
-  caching its own KV heads) gives the one-process logits.
+  its rows of the batch in its block of JAX's decode-cache layout: a
+  T of 18, 9 rows a model rank, every KV head, the step's row in the
+  second rank's block) gives the one-process logits (one call a data
+  row) on every rank, so that the ranks together cover the batch.
 - A vocabulary made odd (257) pads the head to 258 at tp 2, as JAX's.
 - Checkpoints: the grid's state has JAX's keys, shapes and values and
   restores into JAX; JAX's restores into the grid's ranks, saved again
@@ -188,12 +191,14 @@ for tag, arch, _, kw in a["cells"]:
     bridge.from_flat(flat, m)
     with torch.no_grad():
         logits = m.forward({"tokens": tokens})
-        # serving: a one-call prefill, then a decode step (each rank
-        # caches its own KV heads)
+        # serving: a one-call prefill, then a decode step, on this rank's
+        # rows of the batch (its cache's)
         B, S = tokens.shape
-        caches = m.init_cache(B, S + 1)
-        prefill, caches = m.decode_step(caches, tokens, 0)
-        decode, _ = m.decode_step(caches, tokens[:, -1:], S)
+        caches = m.init_cache(B, S + 2)
+        rows = caches.layout
+        mine = tokens[rows.row0:rows.row0 + rows.rows]
+        prefill, caches = m.decode_step(caches, mine, 0)
+        decode, _ = m.decode_step(caches, mine[:, -1:], S)
     opt = Keep(AdamW(AdamWConfig(state_8bit=run.opt_8bit)))
     state = {"params": m, "opt": opt.init(m)}
     if run.grad_compression:
@@ -203,13 +208,13 @@ for tag, arch, _, kw in a["cells"]:
     shapes = {n: list(p.shape) for n, p in m.named_parameters()}
     if ckpt.is_sharded(state) or rank == 0:   # sharded: every rank gathers
         ckpt.save(f"{a['out']}/{tag}", 1, state)
+    np.savez(f"{a['out']}/{tag}_serve_r{rank}.npz", row0=rows.row0,
+             prefill=prefill.numpy(), decode=decode.numpy())
     if rank == 0:
         out = {k: g.numpy() for k, g in opt.grads.items()}
         out[".loss"] = metrics["loss"].numpy()
         out[".logits"] = logits.numpy()
         np.savez(f"{a['out']}/{tag}_grads.npz", **out)
-        np.savez(f"{a['out']}/{tag}_serve.npz", prefill=prefill.numpy(),
-                 decode=decode.numpy())
     logs[tag] = {"model": [list(map(str, e)) for e in step.model_log],
                  "shapes": shapes}
     # JAX's state after its step, restored into the ranks, saved again
@@ -272,10 +277,14 @@ def _one_process(cfg, flat, tokens, d, out, x=False):
     t = torch.from_numpy(tokens).long()
     with torch.no_grad():
         logits = m.forward({"tokens": t}).numpy()
-        caches = m.init_cache(t.shape[0], t.shape[1] + 1)
-        prefill, caches = m.decode_step(caches, t, 0)
-        serve = {"prefill": prefill.numpy(), "decode": m.decode_step(
-            caches, t[:, -1:], t.shape[1])[0].numpy()}
+        serve = {"prefill": [], "decode": []}
+        for part in t.chunk(d):                 # one call a data row
+            caches = m.init_cache(part.shape[0], part.shape[1] + 2)
+            prefill, caches = m.decode_step(caches, part, 0)
+            serve["prefill"].append(prefill.numpy())
+            serve["decode"].append(m.decode_step(
+                caches, part[:, -1:], part.shape[1])[0].numpy())
+        serve = {k: np.concatenate(v) for k, v in serve.items()}
     opt = AdamW(AdamWConfig(state_8bit=x))
     kept = {}
 
@@ -407,12 +416,20 @@ def check_one_process(steps, tag):
 
 
 def check_serving(steps, tag):
-    """A one-call prefill and a decode step on the grid (each rank its
-    own KV heads in its cache) give the one-process logits, to 1e-4 of
-    max|·|."""
-    _, arch, (d, _), _ = _cell(tag)
-    got = _npz(steps["out"] / f"{tag}_serve.npz")
-    _close(got, steps["one"][arch, d, False]["serve"])
+    """A one-call prefill and a decode step on the grid give, on every
+    rank, the one-process logits of that rank's rows of the batch (its
+    cache's: over "data" where d divides B; T over "model", 9 of the 18
+    rows a rank, every KV head), to 1e-4 of max|·|; the ranks' rows
+    cover the batch."""
+    _, arch, (d, m), _ = _cell(tag)
+    want = steps["one"][arch, d, False]["serve"]
+    covered = set()
+    for rank in range(d * m):
+        got = _npz(steps["out"] / f"{tag}_serve_r{rank}.npz")
+        r0, n = int(got.pop("row0")), got["prefill"].shape[0]
+        covered.update(range(r0, r0 + n))
+        _close(got, {k: v[r0:r0 + n] for k, v in want.items()})
+    assert covered == set(range(B)), covered
 
 
 def check_jax(steps, tag):
