@@ -226,7 +226,20 @@ Phases (each raises on failure):
    rows, and two faults planted in the same partials (rank 1's dropped;
    the exp(m − max) rescale skipped) beyond it; and a last step with
    rank 1's partial dropped in every layer must give logits beyond the
-   bf16 bound (the judge sees such a fault).
+   bf16 bound (the judge sees such a fault);
+27. ``seq_shard`` (``sync.seq``): mamba2-130m at full width (seed 0) on a
+   (1,2) grid of two gloo ranks on this card (``--grid-mode seq``),
+   ``batch_axes="all"`` as JAX picks for it, each rank its half of the
+   sequence (the conv's halo from its left neighbour, the SSD state
+   handed on as a prefix).  A forward at B 1 × S 32768 (prefill_32k's
+   length) in bf16 and fp32, K2 24 launches a rank each time, each
+   rank's logits against the one-process forward's rows on this card
+   (SEQ_TOL, scaled by max|logit|); in fp32 two faults planted on both
+   ranks (the halo zeroed, the entering state dropped) must put rank 1's
+   logits beyond that tolerance.  Then one fp32 training step at B 2 ×
+   S 4096 (train_4k's length; remat: K2 48 launches a rank): the loss
+   and every gradient against the one-process step's on rank 0
+   (STEP_TOL of max|·|).
 
 The last lines are the script's seconds (by phase, then in all), a
 ``{"kernels": [...]}`` JSON
@@ -278,6 +291,7 @@ from repro_torch.models import Model, moe  # noqa: E402
 from repro_torch.models.model import SYNC_MODES  # noqa: E402
 from repro_torch.checkpoint import bridge  # noqa: E402
 from repro_torch.sync import model_axis, shard  # noqa: E402
+from repro_torch.sync import seq as seq_lib  # noqa: E402
 from repro_torch.runtime import LoopConfig, StepMonitor  # noqa: E402
 from repro_torch.runtime import run_training  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -2718,7 +2732,8 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
     (``grid_full``), then on either grid the smoke steps
     (``grid_smoke``) and serving (``grid_smoke_decode``); writes
     ``grid<DxM>_rank<R>.json`` with its launches.  With ``--grid-mode
-    decode``, a rank of phase 26 instead (``decode_full``)."""
+    decode``, a rank of phase 26 instead (``decode_full``); with
+    ``--grid-mode seq``, of phase 27 (``seq_full``)."""
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=math.prod(sizes),
                             timeout=timedelta(seconds=GRID_TIMEOUT))
@@ -2726,7 +2741,9 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
         grid = mesh_lib.make_grid(sizes)
         zero_counts()
         res = {}
-        if mode == "decode":
+        if mode == "seq":
+            res = seq_full(grid, rank)
+        elif mode == "decode":
             res = decode_full(grid, rank, out)
         elif sizes == GRID_FULL:
             res["full"] = grid_full(grid, rank, out)
@@ -2737,11 +2754,11 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
         if mode == "decode":
             res["launches"] = dict(Counter(res["prefill_launches"])
                                    + Counter(res["decode_launches"]))
-        else:
+        elif mode != "seq":
             res["smoke"] = grid_smoke(grid, rank, sizes, out)
             res["decode"] = grid_smoke_decode(grid, rank, sizes, out)
             res["launches"] = counts()
-        if sizes == GRID_FULL and mode != "decode":
+        if sizes == GRID_FULL and mode == "grid":
             for k, n in full.items():
                 res["launches"][k] += n
         name = "x".join(map(str, sizes))
@@ -3184,6 +3201,179 @@ def phase_grid_decode(out: str) -> dict[str, int]:
     return dict(launches)
 
 
+# ----------------------------------------------------------------------
+# seq_shard: the sequence split over the model group (phase 27)
+# ----------------------------------------------------------------------
+SEQ_GRID = (1, 2)
+# B x S of the forward (prefill_32k's length) and of the training step
+# (train_4k's)
+SEQ_FORWARD, SEQ_TRAIN = (1, 32768), (2, 4096)
+# each rank's logits against one process's rows, scaled by max|logit|:
+# fp32 as the sync tests (tests/test_sync.py:55), bf16 as the model tests
+# (tests/test_models.py:113)
+SEQ_TOL = {torch.float32: STEP_TOL, torch.bfloat16: 2e-2}
+
+
+def seq_models(cfg, dtype: torch.dtype, grid) -> tuple[Model, Model]:
+    """The ``seq_shard`` model on ``grid`` and one process's, both from
+    seed 0's draws on the card."""
+    run = RunConfig(seq_shard=True, batch_axes="all")
+    models = (Model(cfg, run, dtype=dtype, device="cuda", grid=grid),
+              Model(cfg, RunConfig(), dtype=dtype, device="cuda"))
+    for m in models:
+        m.init(torch.Generator(device="cuda").manual_seed(0))
+    return models
+
+
+def seq_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got − want| over max|want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def seq_full(grid, rank: int) -> dict:
+    """A rank of phase 27: mamba2-130m's ``seq_shard`` forward at
+    SEQ_FORWARD in bf16 and fp32 against one process's rows of it (K2's
+    launches counted around the grid's forward alone), the fp32 one again
+    with each planted fault; then one fp32 training step at SEQ_TRAIN,
+    its loss and (rank 0) every gradient against one process's."""
+    cfg = configs.get(SSM_ARCH)
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, SEQ_FORWARD,
+                           generator=g).cuda()
+    batch = {"tokens": tokens}
+    res = {"forward": {}, "faults": {}, "launches": Counter()}
+    for dtype in (torch.bfloat16, torch.float32):
+        model, one = seq_models(cfg, dtype, grid)
+        split = model.seq_split(SEQ_FORWARD[1])
+        with torch.no_grad():
+            want = one.forward(batch)[:, split.start:split.start + split.rows]
+            del one
+            zero_counts()
+            t0 = time.perf_counter()
+            got = model.forward(batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = counts()
+            res["launches"].update(launches)
+            res["forward"][str(dtype)] = {
+                "err": seq_err(got, want), "ms": ms, "launches": launches,
+                "rows": [split.start, split.rows],
+                "finite": bool(torch.isfinite(got).all())}
+            del got
+            faults = {"halo zeroed": ("halo", lambda self, tail:
+                                      torch.zeros_like(tail)),
+                      "entering state dropped": (
+                          "prefix", lambda self, state, decay:
+                          torch.zeros_like(state))}
+            for name, (attr, fn) in faults.items():
+                if dtype != torch.float32:
+                    break
+                keep = getattr(seq_lib.Seq, attr)
+                setattr(seq_lib.Seq, attr, fn)
+                try:
+                    res["faults"][name] = seq_err(model.forward(batch), want)
+                finally:
+                    setattr(seq_lib.Seq, attr, keep)
+        del model, want
+        torch.cuda.empty_cache()
+    # one fp32 training step on the grid, then one process's
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, SEQ_TRAIN,
+                                     generator=g).cuda()}
+    model, one = seq_models(cfg, torch.float32, grid)
+    steps = {}
+    for name, m in (("grid", model), ("one", one)):
+        if name == "one" and rank != 0:
+            break
+        opt = _KeepGrads(AdamW(AdamWConfig()))
+        state = {"params": m, "opt": opt.init(m)}
+        step = train.make_train_step(m, opt, m.run,
+                                     grid=grid if m is model else None)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        steps[name] = {"loss": float(metrics["loss"]), "grads": opt.grads,
+                       "ms": 1e3 * (time.perf_counter() - t0),
+                       "launches": counts(),
+                       "log": dict(Counter(f"{k} {key}" for k, key in
+                                           step.model_log))}
+        del state, opt, step
+    res["launches"].update(steps["grid"]["launches"])
+    res["train"] = {"loss": steps["grid"]["loss"],
+                    "ms": steps["grid"]["ms"],
+                    "launches": steps["grid"]["launches"],
+                    "log": steps["grid"]["log"]}
+    if rank == 0:
+        want = steps["one"]
+        res["train"].update(
+            one_loss=want["loss"], one_ms=want["ms"],
+            grad_err=max(seq_err(g, want["grads"][k])
+                         for k, g in steps["grid"]["grads"].items()),
+            finite=all(bool(torch.isfinite(g).all())
+                       for g in steps["grid"]["grads"].values()))
+    res["launches"] = dict(res["launches"])
+    res["peak"] = torch.cuda.max_memory_allocated()
+    del model, one, steps
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_seq(out: str) -> dict[str, int]:
+    """Phase 27: ``seq_shard`` on a (1,2) grid of two gloo ranks on this
+    card (``seq_full``).  Each forward within SEQ_TOL of one process's
+    rows with K2 launched once a layer on each rank; each planted fault
+    beyond SEQ_TOL; the step's loss and every gradient within STEP_TOL of
+    max|·| of one process's.  Returns the launches."""
+    t0 = time.perf_counter()
+    ranks = finish_grid(start_grid(SEQ_GRID, out, "seq"), out)
+    cfg = configs.get(SSM_ARCH)
+    L = cfg.n_layers
+    bad, launches = [], Counter()
+    for k, rk in enumerate(ranks):
+        launches.update(rk["launches"])
+        for dtype, f in rk["forward"].items():
+            tol = SEQ_TOL[getattr(torch, dtype.split(".")[-1])]
+            print(f"seq_shard {SSM_ARCH} 1x2 rank {k} forward {dtype} B "
+                  f"{SEQ_FORWARD[0]} x S {SEQ_FORWARD[1]}, rows "
+                  f"{f['rows'][0]}..{sum(f['rows'])}: logits against one "
+                  f"process's {f['err']:.4e} of max|.| (limit {tol}); "
+                  f"finite {f['finite']}; launches {f['launches']}; "
+                  f"{f['ms']:.1f} ms (two ranks share the card: not a "
+                  f"speed)")
+            if not (f["err"] <= tol and f["finite"]
+                    and f["launches"] == {"K1": 0, "K2": L, "K3": 0}):
+                bad.append(f"rank {k} forward {dtype}")
+        for name, err in rk["faults"].items():
+            print(f"seq_shard rank {k} planted fault ({name}, fp32): "
+                  f"logits {err:.4e} of max|.| from one process's")
+        t = rk["train"]
+        print(f"seq_shard {SSM_ARCH} 1x2 rank {k} fp32 step B "
+              f"{SEQ_TRAIN[0]} x S {SEQ_TRAIN[1]}: loss {t['loss']:.6f}; "
+              f"launches {t['launches']}; {t['ms']:.1f} ms; model-group "
+              f"collectives {t['log']}; peak {rk['peak'] / 2**30:.3f} GiB")
+        if t["launches"] != {"K1": 0, "K2": 2 * L, "K3": 0}:
+            bad.append(f"rank {k} step launches")
+    faults = ranks[1]["faults"]
+    if not all(err > SEQ_TOL[torch.float32] for err in faults.values()):
+        bad.append("a planted fault passed the fp32 judge")
+    t = ranks[0]["train"]
+    print(f"seq_shard fp32 step against one process's ({t['one_ms']:.1f} "
+          f"ms): loss {t['loss']:.6f} against {t['one_loss']:.6f}; worst "
+          f"gradient {t['grad_err']:.4e} of its max|.| (limit {STEP_TOL}); "
+          f"finite {t['finite']}")
+    if not (t["finite"] and t["grad_err"] <= STEP_TOL and abs(
+            t["loss"] - t["one_loss"]) <= STEP_TOL * abs(t["one_loss"])
+            and ranks[1]["train"]["loss"] == t["loss"]):
+        bad.append("step")
+    if bad:
+        raise AssertionError(f"phase 27 failed: {bad}")
+    print(f"seq_shard: phase 27 took {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
 _ONE_PROCESS: dict = {}
 
 
@@ -3250,6 +3440,7 @@ def main(run_dir: str) -> int:
     timed("24 estimate", phase_estimate, peaks, fsdp_peak, card)
     launches.update(timed("25 grid", phase_grid))
     launches.update(timed("26 grid decode", phase_grid_decode, run_dir))
+    launches.update(timed("27 seq_shard", phase_seq, run_dir))
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]
@@ -3284,7 +3475,7 @@ if __name__ == "__main__":
         p.add_argument("--grid-init", required=True)
         p.add_argument("--grid-dir", required=True)
         p.add_argument("--grid-mode", default="grid",
-                       choices=("grid", "decode"))
+                       choices=("grid", "decode", "seq"))
         a = p.parse_args()
         grid_worker(a.grid_rank, mesh_lib.parse(a.grid), a.grid_init,
                     a.grid_dir, a.grid_mode)

@@ -9,6 +9,7 @@ The batch is drawn with numpy, as in JAX, so both give the same tokens.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -24,11 +25,26 @@ class DataConfig:
 
 
 class SyntheticLM:
-    """Stateless-per-step synthetic LM stream: ``batch_at(step)``."""
+    """Stateless-per-step synthetic LM stream: ``batch_at(step)``, or
+    iterated from step 0.
 
-    def __init__(self, cfg: DataConfig, device: torch.device):
+    ``block`` (``(k, n)``): hand out only the k-th of n equal blocks of
+    each batch's rows, the counterpart of the JAX package's
+    ``make_array_from_callback`` over a sharding of the batch: a rank
+    that takes its rows of the global batch gets them without the rest.
+    The rows are ``_host_batch``'s, bit for bit."""
+
+    def __init__(self, cfg: DataConfig, device: torch.device,
+                 block: Optional[tuple[int, int]] = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        if block is not None:
+            k, n = block
+            if not 0 <= k < n or cfg.global_batch % n:
+                raise ValueError(f"block {block}: a batch of "
+                                 f"{cfg.global_batch} rows in {n} equal "
+                                 f"blocks, k in [0, {n})")
+        self.block = block
 
     def _host_batch(self, step: int) -> np.ndarray:
         cfg = self.cfg
@@ -43,6 +59,17 @@ class SyntheticLM:
         return toks.astype(np.int32)
 
     def batch_at(self, step: int) -> dict:
-        """{"tokens": int64 [B, S]} on the pipeline's device."""
-        toks = torch.from_numpy(self._host_batch(step)).long()
-        return {"tokens": toks.to(self.device)}
+        """{"tokens": int64 [B, S]} on the pipeline's device (with
+        ``block``, its rows alone)."""
+        toks = self._host_batch(step)
+        if self.block is not None:
+            k, n = self.block
+            b = toks.shape[0] // n
+            toks = toks[k * b:(k + 1) * b]
+        return {"tokens": torch.from_numpy(toks).long().to(self.device)}
+
+    def __iter__(self) -> Iterator[dict]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1

@@ -129,7 +129,7 @@ class _SsdIntraChunk(torch.autograd.Function):
 
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
-                init_state: Optional[torch.Tensor] = None):
+                init_state: Optional[torch.Tensor] = None, seq=None):
     """The chunked SSD scan with its intra-chunk term on K2.
 
     xh: [B,L,H,P], dt: [B,L,H] (post-softplus, fp32), A: [H] (negative,
@@ -139,7 +139,18 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     and its correction are linear and cheap, and stay plain PyTorch.  On
     the card the intra-chunk term's backward recomputes
     ``ref.ssd_intra_chunk_ref``.
+
+    ``seq`` (a ``sync.seq.Seq``, in place of ``init_state``): the inputs
+    are this rank's rows of a sequence split over the grid's model group.
+    The rank scans its chunks from a zero state, then takes the state
+    entering its rows from the ranks before it (``seq.prefix`` of its
+    final state and total decay) and adds that state's part to every
+    chunk's entering state and to its final state, as a scan from it
+    would: one K2 launch, differentiable throughout.
     """
+    if seq is not None and init_state is not None:
+        raise ValueError("ssd_chunked: a split sequence starts from the "
+                         "state its ranks hand on, not an init_state")
     Bsz, L, H, P = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if chunk <= 0 or L % chunk:
@@ -166,6 +177,14 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         s = s * chunk_decay[..., c, None, None] + states[:, :, c].transpose(
             -1, -2)
     prev = torch.stack(prev, dim=2)                         # [B,H,nc,P,N]
+    if seq is not None:
+        # the entering state decays to chunk c by the chunks before c
+        logd = cum[..., -1]                                 # [B,H,nc]
+        total = torch.exp(logd.sum(-1))                     # [B,H]
+        enter = seq.prefix(s, total)
+        before = torch.exp(torch.cumsum(logd, -1) - logd)
+        prev = prev + before[..., None, None] * enter[:, :, None]
+        s = s + total[..., None, None] * enter
 
     # y_inter[b,c,q,h] = exp(cum) · (C of h's group) · prev[b,h,c]; the
     # group's C is contracted once per head group, not repeated per head

@@ -49,14 +49,21 @@ group) and the data group's gradient sync, and takes JAX's
 layout (``Model.init_cache``: B over the data axes, T over "model", or
 over every axis where B stays whole) and counts the gathers and the
 softmax merge of its split attention on the model (or world) group.  A
-train or prefill cell whose JAX choice is ``seq_shard`` is a skip; a
-decode cell runs unsplit there, as JAX's does (``seq_split``).
+train or prefill cell whose JAX choice is ``seq_shard`` is a skip unless
+the caller names ``seq_shard`` (``--set seq_shard=True``), as JAX's
+``lower_cell`` honours an explicit override: the rank then takes its
+rows of the batch over the data axes and its piece of the sequence
+(``sync.seq``, a stack of Mamba2 blocks alone), and its halo, state and
+loss collectives are counted on the model group.  A decode cell runs
+unsplit there, as JAX's does (``seq_split``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
       --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 16x16
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-130m \
+      --shape prefill_32k --mesh 16x16 --set seq_shard=True
 """
 from __future__ import annotations
 
@@ -124,7 +131,8 @@ def default_run(cfg: ArchConfig, overrides: Optional[dict] = None,
     16)``: a grid of ranks, ``launch.mesh``) the port takes JAX's
     ``batch_axes`` too, and the record reports JAX's ``seq_shard`` choice
     for ``shape`` (JAX's ``lower_cell`` turns it on where a batch spread
-    over every axis does not fill the mesh), which alone stays unported.
+    over every axis does not fill the mesh), which the port takes only
+    where ``overrides`` name it (``trace_cell``).
     For a train
     ``shape`` the sync mode is the one ``sync.plan.plan_sync`` picks for it
     at 256 H100s (under fsdp barrier mode keeps every repeat's whole
@@ -165,10 +173,18 @@ def seq_split(shape: ShapeConfig, mesh: tuple[int, ...]) -> bool:
 
 
 def rank_batch(global_batch: int, mesh: tuple[int, ...],
-               run: RunConfig) -> int:
+               run: RunConfig, split: bool = False) -> int:
     """The rows one rank of a grid of ``mesh`` takes: the batch rule's
     (``launch.sharding.batch_spec``: the largest prefix of the data axes,
-    every axis under ``batch_axes="all"``, that divides it)."""
+    every axis under ``batch_axes="all"``, that divides it); where
+    ``seq_shard`` splits the sequence (``split``), its rows over the data
+    axes alone, as JAX's constraint ``P(dp without "model", "model")``."""
+    if split:
+        data = math.prod(mesh[:-1])
+        if global_batch % data:
+            raise ValueError(f"seq_shard: a batch of {global_batch} does "
+                             f"not split over {data} data ranks")
+        return global_batch // data
     grid = mesh_lib.stand_in(mesh)
     spec = sharding.batch_spec((global_batch,), grid, run)
     return global_batch // math.prod(
@@ -370,8 +386,12 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
                 if shape.kind == "train" else 0.0)
         breakdown = {"all-reduce": coll} if coll else {}
     coll = sum(breakdown.values())
-    # one rank's terms against one rank's 6·N·D: chips 1
-    mf = model_flops(cfg, dataclasses.replace(shape, global_batch=batch))
+    # one rank's terms against one rank's 6·N·D (its rows and, where
+    # seq_shard splits them, its piece of the sequence): chips 1
+    seq = model.seq_split(shape.seq_len) if shape.kind != "decode" else None
+    mf = model_flops(cfg, dataclasses.replace(
+        shape, global_batch=batch,
+        seq_len=seq.rows if seq is not None else shape.seq_len))
     roof = Roofline(flops=flops.get_total_flops(), hbm_bytes=nbytes.total,
                     coll_bytes=coll, coll_breakdown=breakdown,
                     chips=1, model_flops=mf)
@@ -400,28 +420,35 @@ def trace_cell(arch: str, shape_name: str, *, world: int = WORLD,
     step of the cell at ``world`` data-parallel ranks, or on a grid of
     ``mesh`` (its sizes: ``(16, 16)`` is JAX's production mesh), measured,
     as a record.  A cell whose JAX choice on ``mesh`` needs ``seq_shard``
-    and whose input it splits (``seq_split``; unported) is a skip record
-    naming it.  ``cfg`` replaces the arch's
-    config (a smoke config in the tests)."""
+    and whose input it splits (``seq_split``) is a skip record naming it
+    unless ``run_overrides`` name ``seq_shard``: JAX's ``lower_cell``
+    takes an explicit choice as given, and so does the port, tracing the
+    split where it is True (``seq_per_rank`` in the record).  ``cfg``
+    replaces the arch's config (a smoke config in the tests)."""
     cfg = cfg or configs.get(arch)
     shape = SHAPES[shape_name]
     if mesh is not None:
         world = math.prod(mesh)
         run, jax_run = default_run(cfg, run_overrides, shape=shape,
                                    mesh=mesh)
-        if jax_run["seq_shard"] and seq_split(shape, mesh):
+        named = run_overrides is not None and "seq_shard" in run_overrides
+        if jax_run["seq_shard"] and seq_split(shape, mesh) and not named:
             return {"arch": arch, "shape": shape_name, "ok": False,
                     "mesh": "x".join(map(str, mesh)), "jax_run": jax_run,
                     "skipped": "JAX's choice here is seq_shard (sequence "
                                "parallelism over \"model\"), which the "
-                               "port does not have"}
-        batch = rank_batch(shape.global_batch, mesh, run)
+                               "port takes only when asked by name: "
+                               "--set seq_shard=True traces it"}
+        split = run.seq_shard and seq_split(shape, mesh)
+        batch = rank_batch(shape.global_batch, mesh, run, split)
         run, _ = default_run(cfg, run_overrides, batch, shape, mesh)
     else:
-        batch = max(1, shape.global_batch // world)
+        batch, split = max(1, shape.global_batch // world), False
         run, jax_run = default_run(cfg, run_overrides, batch, shape)
     m = trace_step(cfg, run, shape, batch, world=world, mesh=mesh)
     where = {"mesh": "x".join(map(str, mesh))} if mesh is not None else {}
+    if split:
+        where["seq_per_rank"] = shape.seq_len // mesh[-1]
     return {
         "arch": arch, "shape": shape_name, "kind": shape.kind,
         "world": world, **where, "global_batch": shape.global_batch,

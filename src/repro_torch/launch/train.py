@@ -164,7 +164,13 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
     world under ``batch_axes="all"``), and the ``GradSync`` runs over that
     group only; the model group's collectives (tensor and expert
     parallelism, gathers at use) run inside the forward and backward, and
-    ``train_step.model_log`` holds the last call's, as ``(kind, key)``."""
+    ``train_step.model_log`` holds the last call's, as ``(kind, key)``.
+    Under ``run.seq_shard`` a batch whose sequence the model group splits
+    (``Model.seq_split``) splits its rows over the grid's data group
+    only, as JAX's ``seq_shard`` drops "model" from the batch's axes: a
+    model group's ranks take the same rows and each its piece of the
+    sequence, and their gradients, parts of one, are summed over the
+    group and averaged over the data rows."""
     names = [name for name, _ in model.named_parameters()]
     if grid is not None or model.grid is not None:
         if model.grid is not grid or group is not None:
@@ -182,10 +188,16 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
     else:
         comm = group
     rank, world = (0, 1) if group is None else (group.rank(), group.size())
-    model_log = model.tp.comm.log if model.tp is not None else None
+    model_comm = model.tp.comm if model.tp is not None else model.seq_comm
+    model_log = model_comm.log if model_comm is not None else None
+    # where seq_shard splits a length (``Model.seq_split``), the rows go
+    # over the data group alone; the closures keep no reference to the
+    # model
+    seq_m = model.seq_comm.world if model.seq_comm is not None else None
+    seq_rows = model.grid.data if seq_m is not None else None
 
-    def grad_fn(params: Model, batch: dict):
-        sync = overlap.GradSync(comm)
+    def grad_fn(params: Model, batch: dict, mean_over: int):
+        sync = overlap.GradSync(comm, mean_over)
         train_step.syncs.append(sync)
         loss, metrics = params.loss(batch, sync)
         # a parameter the batch does not reach (internvl2's vis_proj on
@@ -196,12 +208,12 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
         return dict(zip(names, grads)), {k: v.detach()
                                          for k, v in metrics.items()}
 
-    def compute_grads(params: Model, batch: dict):
+    def compute_grads(params: Model, batch: dict, mean_over: int):
         """Optionally accumulated over microbatches: peak activation
         memory scales 1/k while the fp32 gradient sums stay whole."""
         k = run.microbatches
         if k <= 1:
-            return grad_fn(params, batch)
+            return grad_fn(params, batch, mean_over)
         B = batch["tokens"].shape[0]
         if B % k:
             raise ValueError(f"batch {B} does not split into {k} "
@@ -210,7 +222,7 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
         for i in range(k):
             mb = {key: x.reshape(k, B // k, *x.shape[1:])[i]
                   for key, x in batch.items()}
-            g, metrics = grad_fn(params, mb)
+            g, metrics = grad_fn(params, mb, mean_over)
             if gsum is None:
                 gsum = {n: x.float() for n, x in g.items()}
             else:
@@ -224,16 +236,19 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
         return grads, metrics
 
     def train_step(state: dict, batch: dict):
-        B = batch["tokens"].shape[0]
-        if B % world:
-            raise ValueError(f"batch {B} does not split over {world} "
+        B, S = batch["tokens"].shape
+        r, w = rank, world
+        if seq_m is not None and S % seq_m == 0:
+            r, w = seq_rows.rank, seq_rows.world
+        if B % w:
+            raise ValueError(f"batch {B} does not split over {w} "
                              f"data-parallel ranks")
-        b = B // world
-        batch = {key: x[rank * b:(rank + 1) * b] for key, x in batch.items()}
+        b = B // w
+        batch = {key: x[r * b:(r + 1) * b] for key, x in batch.items()}
         train_step.syncs = []
         if model_log is not None:
             del model_log[:]
-        grads, metrics = compute_grads(state["params"], batch)
+        grads, metrics = compute_grads(state["params"], batch, w)
         metrics = overlap.all_mean(metrics, group)
         if model_log is not None:
             train_step.model_log = list(model_log)

@@ -15,7 +15,9 @@ states the decoder blocks cross-attend to (whisper).
 Built on a grid of ranks (``Model(..., grid=)``, ``launch.mesh``), a rank
 holds its slices of what the JAX package's sharding rule splits
 (``launch.sharding``) and runs tensor and expert parallelism over the
-grid's model group (``sync.model_axis``), as JAX's model runs on a mesh.
+grid's model group (``sync.model_axis``), as JAX's model runs on a mesh;
+under ``RunConfig.seq_shard`` a stack of Mamba2 blocks splits its
+sequence over that group instead (``sync.seq``).
 Its decode cache is its block of JAX's ``cache_shardings``
 (``launch.sharding.CacheBlock``): its batch rows and, where the rule
 splits it, its rows of the cache's T, every head of them; attention
@@ -51,6 +53,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.launch import sharding
 from repro_torch.sync import model_axis, shard
+from repro_torch.sync import seq as seq_lib
 
 
 # ----------------------------------------------------------------------
@@ -116,7 +119,8 @@ def derive_segments(cfg: ArchConfig, *, cross: bool = False,
 # ``moe_combine`` place work on the JAX package's "model" mesh axis (the
 # batch over every axis, the MoE combine's reduction): the port reads them
 # on a grid of ranks (``launch.mesh``), whose model group is that axis.
-# ``seq_shard`` (sequence parallelism over "model") is not ported
+# ``seq_shard`` (sequence parallelism over "model", ``sync.seq``) is read
+# for a stack of Mamba2 blocks alone (``mamba_only``)
 _READ = ("attn_impl", "ssm_chunk", "remat", "microbatches", "logits_fp32",
          "opt_8bit", "grad_compression", "sync_mode", "fsdp")
 _ON_A_GRID = ("batch_axes", "moe_combine")
@@ -124,11 +128,25 @@ SYNC_MODES = ("barrier", "bucketed")
 BATCH_AXES = ("dp", "all")
 
 
-def _check_run(run: RunConfig, grid=None) -> None:
+def mamba_only(cfg: ArchConfig) -> bool:
+    """Whether every block of ``cfg`` is a Mamba2 block: no attention, no
+    MoE, no encoder, no vision prefix, no MTP head (of the ten archs,
+    mamba2-130m; its smoke config adds a dense FFN, pointwise as the
+    block's projections)."""
+    return (not cfg.encoder_layers and not cfg.vision_embed_dim
+            and not cfg.mtp
+            and all(spec.mixer == "mamba" and spec.ffn in ("none", "dense")
+                    for seg in derive_segments(cfg) for spec in seg.pattern))
+
+
+def _check_run(run: RunConfig, grid=None,
+               cfg: Optional[ArchConfig] = None) -> None:
     """Any field the port does not read, set away from its default, raises
     rather than be ignored without a word: ``batch_axes`` and
     ``moe_combine`` without a ``grid`` (they need its model group), and
-    ``seq_shard`` always."""
+    ``seq_shard`` for any arch but a stack of Mamba2 blocks
+    (``mamba_only``; without a grid it splits nothing there, as JAX's
+    without a mesh)."""
     if run.sync_mode not in SYNC_MODES:
         raise ValueError(f"sync_mode {run.sync_mode!r}: want one of "
                          f"{SYNC_MODES}")
@@ -138,7 +156,8 @@ def _check_run(run: RunConfig, grid=None) -> None:
     if run.moe_combine not in model_axis.COMBINES:
         raise ValueError(f"moe_combine {run.moe_combine!r}: want one of "
                          f"{model_axis.COMBINES}")
-    read = _READ + (_ON_A_GRID if grid is not None else ())
+    read = _READ + (_ON_A_GRID if grid is not None else ()) + (
+        ("seq_shard",) if cfg is not None and mamba_only(cfg) else ())
     unread = [f.name for f in dataclasses.fields(run)
               if f.name not in read and getattr(run, f.name) != f.default]
     if unread:
@@ -146,7 +165,7 @@ def _check_run(run: RunConfig, grid=None) -> None:
             f"RunConfig fields {unread} need the JAX package's \"model\" "
             f"mesh axis: batch_axes and moe_combine are read on a grid of "
             f"ranks (Model(..., grid=launch.mesh.make_grid(...))); "
-            f"seq_shard is not ported")
+            f"seq_shard is ported only for stacks of Mamba2 blocks")
 
 
 def _leaves(tree: dict) -> list:
@@ -315,7 +334,9 @@ class _Block(nn.Module):
             self.local_cfg = dataclasses.replace(
                 self.local_cfg, n_heads=H // tp,
                 n_kv_heads=K // tp if cfg.attn_type != "mla" else K)
-        if hasattr(self, "mlp"):
+        if hasattr(self, "mlp") and not layout.run.seq_shard:
+            # (a sequence split over the model group, ``sync.seq``, runs
+            # each rank's rows on the whole weights, gathered at use)
             self.tp_mlp = on("mlp", {name: -2 if name == "w_out" else -1
                                      for name in self.mlp})
         if hasattr(self, "moe"):
@@ -450,7 +471,9 @@ class Model(nn.Module):
         a multiple of the model group's size (``vocab``) and its pad
         columns masked, as JAX's.  ``run.batch_axes="all"`` makes every
         rank a data rank (parameters replicated, or split over the world
-        under fsdp); ``run.moe_combine`` picks the experts' combine."""
+        under fsdp); ``run.moe_combine`` picks the experts' combine;
+        ``run.seq_shard`` splits an input's sequence over the model group
+        (``seq_split``, ``sync.seq``; a stack of Mamba2 blocks alone)."""
         super().__init__()
         self.cfg = cfg
         self.run = run
@@ -462,7 +485,7 @@ class Model(nn.Module):
                 Segment(tuple(dataclasses.replace(s, cross=True)
                               for s in seg.pattern), seg.repeats)
                 for seg in self.segments_spec]
-        _check_run(run, grid)
+        _check_run(run, grid, cfg)
         if grid is not None and group is not None:
             raise ValueError("Model: give a data-parallel group or a grid, "
                              "not both")
@@ -481,6 +504,12 @@ class Model(nn.Module):
         # the batch's ranks: the grid's data group (its world under
         # batch_axes="all"), or the fsdp group
         self.data_comm = data
+        # the model group over which run.seq_shard splits a sequence
+        # (``seq_split``), whatever batch_axes
+        self.seq_comm = (grid.model if run.seq_shard and grid is not None
+                         and grid.tp > 1 else None)
+        if self.seq_comm is not None and self.seq_comm.log is None:
+            self.seq_comm.log = []
         self.tp = model_axis.Tp(model) if model is not None else None
         # JAX pads the head to its mesh's "model" size, batch_axes aside
         tp_pad = grid.tp if grid is not None else 1
@@ -542,6 +571,27 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def seq_split(self, length: int) -> Optional[seq_lib.Seq]:
+        """How ``run.seq_shard`` splits an input of ``length`` rows over
+        the grid's model group of m ranks: where m divides it (JAX's
+        condition, ``src/repro/models/model.py:342-343``) rank k keeps
+        rows ``[k·length/m, (k+1)·length/m)`` (a ``sync.seq.Seq``); else,
+        or without ``seq_shard`` on a grid, None: nothing is split.  A
+        split whose rows a rank the chunk does not divide, or fewer than
+        the conv's W−1, raises."""
+        comm = self.seq_comm
+        if comm is None or length % comm.world:
+            return None
+        split = seq_lib.Seq(comm, length)
+        chunk = min(self.run.ssm_chunk or self.cfg.ssm_chunk, length)
+        halo = self.cfg.ssm_conv - 1
+        if split.rows % chunk or split.rows < halo:
+            raise ValueError(
+                f"seq_shard: {length} rows over {comm.world} model ranks "
+                f"leave {split.rows} a rank, which must be a multiple of "
+                f"the chunk {chunk} and at least the conv's halo of {halo}")
+        return split
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
@@ -581,7 +631,8 @@ class Model(nn.Module):
     def _apply_block(self, bp: dict, spec: BlockSpec, x, *,
                      positions=None, cache=None, cache_index=None,
                      layout: Optional[sharding.CacheBlock] = None,
-                     enc_out=None, block: Optional[_Block] = None):
+                     enc_out=None, block: Optional[_Block] = None,
+                     seq=None):
         """One block: (x, the block's MoE aux loss, or None).  On a grid
         ``block`` says which parts run on this rank's slice: those enter
         through ``tp.enter`` and leave through ``tp.combine``; ``layout``
@@ -617,7 +668,7 @@ class Model(nn.Module):
         else:
             out, _ = ssm.ssm_apply(bp["ssm"], h, cfg,
                                    cache=cache.get("ssm") if cache else None,
-                                   chunk=run.ssm_chunk or None)
+                                   chunk=run.ssm_chunk or None, seq=seq)
         x = x + out
         if spec.cross and enc_out is not None:
             h = rmsnorm(bp["ln_x"], x, cfg.norm_eps)
@@ -650,7 +701,7 @@ class Model(nn.Module):
         return x, aux
 
     def _rows(self, key: tuple, trees: list, r: Optional[int], sync=None,
-              bucket: bool = False) -> list[dict]:
+              bucket: bool = False, seq=None) -> list[dict]:
         """Row r of each tensor of ``trees`` (the whole tensor: r None), in
         the trees' shape.  A sharded tensor's row is gathered whole across
         the ranks and its gradient reduce-scattered back into this rank's
@@ -659,7 +710,13 @@ class Model(nn.Module):
         ``sync``'s bucket, so that their gradients are reduced as soon as
         this repeat's backward is done.  On a grid a tensor that runs
         whole but is split over the model group is then gathered over it
-        (``sync.shard.gathered_at_use``)."""
+        (``sync.shard.gathered_at_use``).  On a sequence split over the
+        model group (``seq``) each rank's gradient is its rows' part: a
+        gathered tensor's parts are summed, not averaged, and a tensor
+        whole on every rank of a model group that splits parameters
+        enters through ``tp.enter``, whose backward sums it over the
+        group (under ``batch_axes="all"`` the data sync spans the grid's
+        world, which sums them)."""
         stacks = [t for tree in trees for t in _leaves(tree)]
         whole = [t for t in stacks if id(t) in self._sharded_ids]
         rest = [t for t in stacks if id(t) not in self._sharded_ids]
@@ -676,13 +733,17 @@ class Model(nn.Module):
         if at_use:
             got.update(zip(map(id, at_use), shard.gathered_at_use(
                 self.tp.comm, key, [got[id(t)] for t in at_use],
-                [self._at_use[id(t)] for t in at_use])))
+                [self._at_use[id(t)] for t in at_use], mean=seq is None)))
+        if seq is not None and self.tp is not None:
+            for t in stacks:
+                if id(t) not in self._at_use:
+                    got[id(t)] = self.tp.enter(got[id(t)], key)
         rows = iter([got[id(t)] for t in stacks])
         return [_rebuild(tree, rows) for tree in trees]
 
     def _run_repeat(self, si: int, r: int, x, *, positions=None,
                     caches=None, cache_index=None, enc_out=None, sync=None,
-                    bucketed: bool = False):
+                    bucketed: bool = False, seq=None):
         """Repeat r of segment si: each of its pattern's blocks in turn,
         on their parameters' rows r (``_rows``: the sharded ones gathered;
         the others, ``bucketed``, through ``sync``'s bucket, so that their
@@ -690,7 +751,7 @@ class Model(nn.Module):
         Returns (x, the MoE blocks' summed aux loss, or None)."""
         blocks = self.segments[si]
         bps = self._rows((si, r), [block.stacked() for block in blocks],
-                         r, sync, bucket=bucketed)
+                         r, sync, bucket=bucketed, seq=seq)
         total_aux = None
         for j, spec in enumerate(self.segments_spec[si].pattern):
             cache = None
@@ -702,13 +763,13 @@ class Model(nn.Module):
                 cache=cache, cache_index=cache_index,
                 layout=caches.layout if caches is not None else None,
                 enc_out=enc_out,
-                block=blocks[j])
+                block=blocks[j], seq=seq)
             if aux is not None:
                 total_aux = aux if total_aux is None else total_aux + aux
         return x, total_aux
 
     def _run_segments(self, x, *, positions=None, caches=None,
-                      cache_index=None, enc_out=None, sync=None):
+                      cache_index=None, enc_out=None, sync=None, seq=None):
         """Loop each segment over its repeats.  Returns (x, the MoE blocks'
         summed aux loss: a 0-d fp32 tensor, or 0.0 without MoE blocks).
         Caches are written in place.  With ``run.remat`` and autograd
@@ -723,13 +784,15 @@ class Model(nn.Module):
         (the JAX package's synced scan); otherwise ``sync.finish`` reduces
         them after the backward.  Under ``run.fsdp`` each repeat's sharded
         rows are gathered before it runs, again in remat's recompute, as
-        JAX's FSDP re-gathers them (``sync.shard``)."""
+        JAX's FSDP re-gathers them (``sync.shard``).  ``seq``: x holds
+        this rank's rows of a sequence split over the model group
+        (``seq_split``)."""
         grad = caches is None and torch.is_grad_enabled()
         remat = self.run.remat and grad
         sync = sync if grad else None
         bucketed = sync is not None and self.run.sync_mode == "bucketed"
         kw = dict(positions=positions, caches=caches, cache_index=cache_index,
-                  enc_out=enc_out, sync=sync, bucketed=bucketed)
+                  enc_out=enc_out, sync=sync, bucketed=bucketed, seq=seq)
         total_aux = 0.0
         for si, seg in enumerate(self.segments_spec):
             for r in range(seg.repeats):
@@ -767,10 +830,14 @@ class Model(nn.Module):
                 x = self._encode_layer(r, x, sync)
         return rmsnorm(self.enc_norm, x, self.cfg.norm_eps)
 
-    def _embed_inputs(self, batch: dict, sync=None):
+    def _embed_inputs(self, batch: dict, sync=None, seq=None):
         """Token embedding, after the projected vision prefix if any.
-        Returns (x, the prefix's length)."""
-        x = self._whole("embed", sync)[batch["tokens"]].to(self.dtype)
+        Returns (x, the prefix's length).  On a split sequence (``seq``)
+        this rank's rows of it, as JAX's ``seq_shard`` constrains x."""
+        tokens = batch["tokens"]
+        if seq is not None:
+            tokens = seq.piece(tokens)
+        x = self._whole("embed", sync, seq)[tokens].to(self.dtype)
         n_prefix = 0
         if self.cfg.vision_embed_dim and "vision_embeds" in batch:
             v = batch["vision_embeds"].to(self.dtype) @ self._whole(
@@ -779,18 +846,21 @@ class Model(nn.Module):
             n_prefix = v.shape[1]
         return x, n_prefix
 
-    def _whole(self, name: str, sync=None) -> torch.Tensor:
+    def _whole(self, name: str, sync=None, seq=None) -> torch.Tensor:
         """Top-level parameter ``name`` as a use takes it: gathered where
         it is split (``_rows``)."""
-        got, = self._rows((name,), [{"w": getattr(self, name)}], None, sync)
+        got, = self._rows((name,), [{"w": getattr(self, name)}], None, sync,
+                          seq=seq)
         return got["w"]
 
-    def _head(self, x, sync=None):
+    def _head(self, x, sync=None, seq=None):
         """Logits over ``vocab`` columns; on a grid whose model group pads
         the head, the pad columns are masked to -1e30 (JAX's ``_head``)."""
-        x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
+        norm = (self._whole("final_norm", sync, seq) if seq is not None
+                else self.final_norm)
+        x = rmsnorm(norm, x, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
-            return x @ self._whole("embed", sync).T
+            return x @ self._whole("embed", sync, seq).T
         head, = self._rows(("head",), [{"w": self.lm_head}], None, sync)
         logits = x @ head["w"]
         if self.vocab != self.cfg.vocab_size:
@@ -801,11 +871,15 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
+        """Logits [B, S, vocab]; on a sequence split over the model group
+        (``seq_split``) this rank's rows of them."""
         enc_out = self.encode(batch) if self.cfg.encoder_layers else None
-        x, _ = self._embed_inputs(batch)
+        seq = self.seq_split(batch["tokens"].shape[1])
+        x, _ = self._embed_inputs(batch, seq=seq)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._run_segments(x, positions=positions, enc_out=enc_out)
-        return self._head(x)
+        x, _ = self._run_segments(x, positions=positions, enc_out=enc_out,
+                                  seq=seq)
+        return self._head(x, seq=seq)
 
     def loss(self, batch: dict, sync=None) -> tuple[torch.Tensor, dict]:
         """Next-token CE over the text region (after any vision prefix),
@@ -813,20 +887,36 @@ class Model(nn.Module):
         the MTP head's CE where the config has one.  Returns (loss, {"ce",
         "aux", "loss"} and "mtp_ce" with MTP), 0-d fp32 tensors.  ``sync``
         (a ``sync.overlap.GradSync``) is the backward's gradient sync, which
-        ``_run_segments`` wires in bucketed mode."""
+        ``_run_segments`` wires in bucketed mode.
+
+        On a sequence split over the model group (``seq_split``) each rank
+        sums the CE of its own rows, whose labels it reads from the whole
+        ``tokens`` (the last row's is the next rank's first token), over
+        the batch's B·(S−1) labels, and the ranks' parts are summed
+        (``sync.seq.Seq.total``): the loss is one process's, and each
+        rank's gradients are its rows' part of it."""
         cfg = self.cfg
         sync = sync if torch.is_grad_enabled() else None
+        tokens = batch["tokens"]
+        seq = self.seq_split(tokens.shape[1])
         enc_out = self.encode(batch, sync) if cfg.encoder_layers else None
-        x, n_prefix = self._embed_inputs(batch, sync)
+        x, n_prefix = self._embed_inputs(batch, sync, seq)
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux = self._run_segments(x, positions=positions, enc_out=enc_out,
-                                    sync=sync)
-        tokens = batch["tokens"]
+                                    sync=sync, seq=seq)
         h = x[:, n_prefix:]                       # text region only
-        logits = self._head(h[:, :-1], sync)
+        if seq is None:
+            logits = self._head(h[:, :-1], sync)
+            labels = tokens[:, 1:]
+        else:
+            labels = tokens[:, seq.start + 1:seq.start + seq.rows + 1]
+            logits = self._head(h[:, :labels.shape[1]], sync, seq)
         if self.run.logits_fp32:
             logits = logits.float()
-        ce = cross_entropy(logits, tokens[:, 1:])
+        ce = cross_entropy(logits, labels)
+        if seq is not None:
+            B, S = tokens.shape
+            ce = seq.total(ce * (labels.numel() / (B * (S - 1))))
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + cfg.router_aux_weight * aux
         metrics = {"ce": ce, "aux": aux}

@@ -68,11 +68,15 @@ def ssm_init(generator: torch.Generator, cfg: ArchConfig, *,
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 state: Optional[torch.Tensor] = None):
+                 state: Optional[torch.Tensor] = None, seq=None):
     """Depthwise causal conv1d.  x: [B,L,C]; w: [W,C].  Returns (y, new
-    state [B,W-1,C]): the state carries the last W-1 inputs for decode."""
+    state [B,W-1,C]): the state carries the last W-1 inputs for decode.
+    On a split sequence (``seq``, a ``sync.seq.Seq``) the W-1 rows before
+    this rank's first are its left neighbour's last (``seq.halo``)."""
     W = w.shape[0]
-    if state is None:
+    if seq is not None:
+        pad = seq.halo(x[:, x.shape[1] - (W - 1):])
+    elif state is None:
         pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
                           device=x.device)
     else:
@@ -87,7 +91,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def ssm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               cache: Optional[dict[str, torch.Tensor]] = None,
-              chunk: Optional[int] = None):
+              chunk: Optional[int] = None, seq=None):
     """Mamba2 block on x [B,L,d].  Returns (y [B,L,d], cache).
 
     - no cache: the chunked scan over the sequence from a zero state, with
@@ -100,7 +104,11 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
       L > chunk is not a multiple of it); the final state and the new conv
       tail are written into the cache in place (the JAX package prefills
       token by token);
-    - cache and L == 1: the single-step recurrence, in place.
+    - cache and L == 1: the single-step recurrence, in place;
+    - ``seq`` (a ``sync.seq.Seq``; no cache): x is this rank's rows of a
+      sequence split over the grid's model group, which the chunk must
+      divide: the conv takes its halo from the left neighbour and the scan
+      the state its ranks hand on (``ops.ssd_chunked``).
     """
     dims = ssm_dims(cfg)
     B_, L, _ = x.shape
@@ -113,7 +121,8 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     dt_raw = zxbcdt[..., -nh:]
 
     conv_state = cache["conv"] if cache is not None else None
-    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
+    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state,
+                                 seq)
 
     xs = xBC[..., :d_in].reshape(B_, L, nh, hd)
     Bm = xBC[..., d_in:d_in + G * N].reshape(B_, L, G, N)
@@ -124,7 +133,7 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
     if cache is None:
         Q = min(chunk or cfg.ssm_chunk, L)
-        y, final = ops.ssd_chunked(xs, dt, A, Bm, Cm, Q)
+        y, final = ops.ssd_chunked(xs, dt, A, Bm, Cm, Q, seq=seq)
     elif L > 1:
         Q = chunk or cfg.ssm_chunk
         whole = L - L % Q

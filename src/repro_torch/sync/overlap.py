@@ -80,7 +80,8 @@ class _Bucket(torch.autograd.Function):
 
 class GradSync:
     """The gradient sync of one backward across the data-parallel ranks
-    of ``group`` (None: one process).
+    of ``group`` (None: one process), the sums divided by ``mean_over``
+    (default: the group's size).
 
     ``log`` lists, in order: ``("backward", key)`` when repeat ``key``'s
     backward starts (a hook on its output), ``("issue", key)`` for each
@@ -93,9 +94,13 @@ class GradSync:
     it costs a list append per event.  ``group`` is a process group or a
     ``sync.shard.Comm``."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, mean_over: Optional[int] = None):
         self.comm = shard.as_comm(group)
         self.world = 1 if self.comm is None else self.comm.world
+        # the sums are divided by this many ranks: the group's, or where
+        # a sequence splits over its model groups (``sync.seq``) the data
+        # rows' count, as each model group's gradients are parts of one
+        self.mean_over = mean_over or self.world
         self.log: list[tuple] = []
         self._pending: list[tuple] = []      # (slots, flat, work)
         self._scattered: list[list] = []     # [slots, grads, flat, work]
@@ -185,7 +190,7 @@ class GradSync:
         for slots, shapes, flat, work in self._scattered:
             if work is not None:
                 work.wait()
-            flat.div_(self.world)
+            flat.div_(self.mean_over)
             for (t, r), piece in zip(slots, shard.slices_of(flat, shapes,
                                                             self.world)):
                 g = grads[where[id(t)]]
@@ -208,7 +213,7 @@ class GradSync:
         """Wait for ``flat``'s sum and return it over the world size, cut
         into pieces the sizes of ``like``."""
         work.wait()
-        flat.div_(self.world)
+        flat.div_(self.mean_over)
         return flat.split([t.numel() for t in like])
 
 

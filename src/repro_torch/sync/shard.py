@@ -226,12 +226,14 @@ def gathered(comm: Comm, sync, key: tuple, stacks: Sequence[torch.Tensor],
 
 
 def gathered_at_use(comm: Comm, key, pieces: Sequence[torch.Tensor],
-                    axes: Sequence[int]) -> tuple:
+                    axes: Sequence[int], mean: bool = True) -> tuple:
     """``pieces`` (slices along ``axes`` over the model group ``comm``)
     gathered whole for a use that needs the whole tensor; each gradient
     is reduce-scattered back at once and divided by the group's size, as
-    every rank of the group computes the same whole gradient."""
-    return _Gather.apply(comm, None, key, [], True, tuple(axes), True,
+    every rank of the group computes the same whole gradient.  Without
+    ``mean`` (a sequence split over the group, ``sync.seq``: each rank's
+    gradient is its rows' part of the whole) the parts are summed."""
+    return _Gather.apply(comm, None, key, [], True, tuple(axes), mean,
                          *pieces)
 
 
