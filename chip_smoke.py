@@ -15,9 +15,14 @@ Phases (each raises on failure):
    192/128 at S 1024, GQA 4:1 at the serving shape), and at internvl2-2b's
    training shape (GQA 2:1, S 2048), deepseek-v3's MLA prefill (B 4, S
    1024, 128 heads, hd 192 / hd_v 128) and whisper's encoder (B 4, S 1500,
-   20 heads of 64, non-causal), each with the tiling it ran; and its time
-   at the three prefill shapes beside the plain version,
-   ``F.scaled_dot_product_attention`` (a yardstick only) and its bound;
+   20 heads of 64, non-causal), each with the tiling it ran; with a query
+   offset (query row i at key position off + i, as a ``seq_shard`` rank
+   runs it): B 4, 512 queries over 1024 keys, offset 512, at deepseek-7b's
+   32 heads of 128 in bf16 and fp32 and chatglm3-6b's GQA 32/2, and a
+   ragged offset of 37 at S 100 on both paths; and its time at the three
+   prefill shapes and at the offset one beside the plain version,
+   ``F.scaled_dot_product_attention`` (a yardstick only; lower-right
+   causal at the offset) and its bound;
 3. on a small input (the smoke config, fp32), the one-call prefill through
    K1 against token-by-token decode on the plain path;
 4. serve deepseek-7b at full width (bf16, random weights from seed 0):
@@ -27,7 +32,7 @@ Phases (each raises on failure):
    plain bf16 path's and an fp32 reference's on the same weights; each
    serving phase (4, 7, 10) warms up with a short request, times TTFT on
    the first full-size prefill, and prints a second prefill's time beside
-   it; phase 4 keeps its prompts, tokens and logits for phase 26;
+   it; phase 4 keeps its prompts, tokens and logits for phases 26 and 28;
 5. K2 (the SSD intra-chunk term, CUDA; bf16 on the tensor cores) against
    its plain PyTorch version on the card at the mamba2-130m serving prefill
    shape, Q 8, a prompt shorter than a chunk, two groups of two heads, a
@@ -239,7 +244,21 @@ Phases (each raises on failure):
    logits beyond that tolerance.  Then one fp32 training step at B 2 ×
    S 4096 (train_4k's length; remat: K2 48 launches a rank): the loss
    and every gradient against the one-process step's on rank 0
-   (STEP_TOL of max|·|).
+   (STEP_TOL of max|·|);
+28. ``seq_shard`` for the dense attention archs: deepseek-7b at full width
+   (seed 0, as phase 4) on a (1,2) grid of two gloo ranks on this card
+   (``--grid-mode seq_attn``), ``batch_axes="all"``, each rank 512 rows of
+   each of phase 4's 4 × 1024 prompts at their positions, attending to the
+   k and v of every row up to its last (one all-gather a layer) through
+   K1 with its query offset (0 and 512, 30 launches a rank).  The bf16
+   forward's logits against phase 4's prefill logits at the rank's rows,
+   judged as phase 26 (AGREE_VS_PLAIN_ERR times phase 4's plain path's
+   error); two faults planted on rank 1 (its rows at positions counted
+   from 0; its keys cut to its own rows) must lie beyond that bound.
+   Then one fp32 step of the model cut to SEQ_ATTN_LAYERS layers (every
+   width kept) at B 2 × S 2048 (remat: K1 4 launches a rank, offsets 0
+   and 1024): the loss and every gradient against one process's on rank
+   0 (STEP_TOL of max|·|).
 
 The last lines are the script's seconds (by phase, then in all), a
 ``{"kernels": [...]}`` JSON
@@ -271,6 +290,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.nn.attention.bias import causal_lower_right
 
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
@@ -433,6 +453,7 @@ class Case:
     hdv: int
     causal: bool
     dtype: torch.dtype
+    off: int = 0        # query row i at key position off + i: T = S + off
 
 
 PREFILL = Case("prefill deepseek-7b", SERVE_BATCH, SERVE_PROMPT, 32, 32, 128,
@@ -444,6 +465,23 @@ ENC_ATTN = Case("encoder whisper-large-v3", ENC_BATCH, 1500, 20, 20, 64, 64,
 DEC_ATTN = Case("decoder whisper-large-v3", ENC_BATCH, ENC_PROMPT, 20, 20,
                 64, 64, True, torch.bfloat16)
 K1_TIMED = [PREFILL, MLA_PREFILL, ENC_ATTN]
+# K1 with a query offset, as a seq_shard rank runs it (phase 28): rank 1 of
+# a (1,2) grid over phase 4's prompts, 512 query rows over 1024 keys
+OFFSET_PREFILL = Case("offset 512 deepseek-7b", SERVE_BATCH,
+                      SERVE_PROMPT // 2, 32, 32, 128, 128, True,
+                      torch.bfloat16, SERVE_PROMPT // 2)
+OFFSET_CASES = [
+    OFFSET_PREFILL,
+    dataclasses.replace(OFFSET_PREFILL, name="offset 512 deepseek-7b fp32",
+                        dtype=torch.float32),
+    Case("offset 512 gqa 32/2 chatglm3-6b", SERVE_BATCH, SERVE_PROMPT // 2,
+         32, 2, 128, 128, True, torch.bfloat16, SERVE_PROMPT // 2),
+    # a ragged offset and S: the diagonal inside a tile, on both paths
+    Case("offset 37, S 100, gqa 2:1", 2, 100, 4, 2, 64, 64, True,
+         torch.bfloat16, 37),
+    Case("offset 37, S 100, fp32", 2, 100, 4, 2, 64, 64, True,
+         torch.float32, 37),
+]
 CASES = [
     PREFILL,
     Case("gqa 2:1, ragged S", 2, 1000, 8, 4, 64, 64, True, torch.bfloat16),
@@ -577,29 +615,35 @@ def host_us(fn, calls: int = 200) -> float:
 
 
 def attention_inputs(c: Case, gen: torch.Generator):
-    """q [B,S,H,hd]; k, v as the first S rows of a longer cache (strided),
-    the way the one-call prefill hands them to the kernel."""
+    """q [B,S,H,hd]; k, v [B,T,K,·] (T = S + the offset) as the first T
+    rows of a longer cache (strided), the way the one-call prefill hands
+    them to the kernel."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(c.dtype)
+    T = c.S + c.off
     q = randn(c.B, c.S, c.H, c.hd)
-    k = randn(c.B, c.S + 32, c.K, c.hd)[:, :c.S]
-    v = randn(c.B, c.S + 32, c.K, c.hdv)[:, :c.S]
+    k = randn(c.B, T + 32, c.K, c.hd)[:, :T]
+    v = randn(c.B, T + 32, c.K, c.hdv)[:, :T]
     return q, k, v
 
 
-def plain_attention(q, k, v, causal):
+def plain_attention(q, k, v, causal, off: int = 0):
     o = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal)
+                                v.transpose(1, 2), causal=causal,
+                                q_offset=off)
     return o.transpose(1, 2)
 
 
 def attention_bound_ms(c: Case) -> tuple[float, str]:
     """Least time for the work: each input read once, the output written
-    once; products over the causal pairs only where causal."""
+    once; products over the causal pairs only where causal (query row i
+    at key position off + i sees off + i + 1 keys)."""
     elem = torch.finfo(c.dtype).bits // 8
+    T = c.S + c.off
     nbytes = elem * (c.B * c.S * c.H * (c.hd + c.hdv)
-                     + c.B * c.S * c.K * (c.hd + c.hdv))
-    pairs = c.S * (c.S + 1) // 2 if c.causal else c.S * c.S
+                     + c.B * T * c.K * (c.hd + c.hdv))
+    pairs = (c.S * c.off + c.S * (c.S + 1) // 2 if c.causal
+             else c.S * T)
     flops = 2 * c.B * c.H * pairs * (c.hd + c.hdv)
     peak = BF16_FLOP_PER_S if c.dtype == torch.bfloat16 else FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
@@ -722,15 +766,16 @@ def phase_k1() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     with torch.inference_mode():
-        for c in CASES:
+        for c in CASES + OFFSET_CASES:
             q, k, v = attention_inputs(c, gen)
-            out = ops.flash_attention(q, k, v, causal=c.causal)
-            want = plain_attention(q, k, v, c.causal)
+            out = ops.flash_attention(q, k, v, causal=c.causal,
+                                      q_offset=c.off)
+            want = plain_attention(q, k, v, c.causal, c.off)
             torch.cuda.synchronize()
             err = (out.float() - want.float()).abs().max().item()
             ok = math.isfinite(err) and err <= TOL[c.dtype]
-            print(f"K1 {c.name:26s} B{c.B} S{c.S} H{c.H} K{c.K} "
-                  f"hd{c.hd}/{c.hdv} {str(c.dtype)[6:]:8s} "
+            print(f"K1 {c.name:26s} B{c.B} S{c.S} T{c.S + c.off} H{c.H} "
+                  f"K{c.K} hd{c.hd}/{c.hdv} {str(c.dtype)[6:]:8s} "
                   f"causal={c.causal} [{fa.tiling(c.hd, c.hdv, c.dtype)}]: "
                   f"max|d| {err:.3e} (tol {TOL[c.dtype]:.0e}) "
                   f"{'ok' if ok else 'FAIL'}")
@@ -757,6 +802,26 @@ def phase_k1() -> dict:
                   f"({ms / library_ms:.2f}x); bound {bound_ms:.4f} ms "
                   f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
             del q, k, v, qt, kt, vt
+        # the offset launch against sdpa with a lower-right causal mask
+        # (query row i sees keys 0 .. T − S + i; a yardstick only)
+        c = OFFSET_PREFILL
+        q, k, v = attention_inputs(c, gen)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lower_right = causal_lower_right(c.S, c.S + c.off)
+        ms, plain_ms, library_ms = (
+            time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                q_offset=c.off)),
+            time_ms(lambda: plain_attention(q, k, v, True, c.off)),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=lower_right)))
+        bound_ms, bound_by = attention_bound_ms(c)
+        print(f"K1 at the {c.name} shape (B{c.B} S{c.S} T{c.S + c.off} "
+              f"H{c.H} hd{c.hd}/{c.hdv} causal, q_offset {c.off}): "
+              f"{ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa lower-right "
+              f"(yardstick) {library_ms:.4f} ms ({ms / library_ms:.2f}x); "
+              f"bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.2f}% of bound")
+        del q, k, v, qt, kt, vt
     ms, plain_ms, library_ms, bound_ms, bound_by = timed[PREFILL.name]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -958,7 +1023,8 @@ def model_bytes(model: Model) -> int:
 def phase_serve(out: str) -> dict:
     """Phase 4; its prompts, greedy tokens, last-position prefill logits,
     each decode step's logits (bf16) and its two paths' errors are saved
-    to ``out`` for phase 26."""
+    to ``out`` for phases 26 and 28, and the kernel path's prefill logits
+    at every position (bf16, [B,P,V]) for phase 28."""
     run = serve_run(configs.get(SERVE_ARCH), SERVE_BATCH, SERVE_PROMPT,
                     SERVE_GEN, {"K1": (configs.get(SERVE_ARCH).n_layers, 0)})
     errs = judge_prefill(run)
@@ -966,6 +1032,9 @@ def phase_serve(out: str) -> dict:
                 "prefill_last": run.last_logits.cpu(),
                 "steps": run.step_logits.cpu(), **errs},
                f"{out}/{PHASE4_FILE}")
+    with torch.inference_mode():
+        torch.save(prefill_logits(run.model, run.requests).cpu(),
+                   f"{out}/{PHASE4_LOGITS}")
     return run.launches
 
 
@@ -2485,7 +2554,9 @@ def grid_resident_want(cfg, run: RunConfig, grid, vocab: int) -> int:
         shape = tuple(p.shape)
         if name == "lm_head":
             shape = shape[:-1] + (vocab,)
-        place = sharding.placement(name.split("."), shape, cfg, run, grid)
+        names = name.split(".")
+        place = sharding.placement(names, shape, cfg, run, grid,
+                                   int(names[0] in ("segments", "encoder")))
         local = place.local(shape, tp, dp)
         scale = place.scale().local(shape[:-1] + (1,), tp, dp)
         total += block(math.prod(local) * p.element_size()) + 2 * (
@@ -2733,7 +2804,8 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
     (``grid_smoke``) and serving (``grid_smoke_decode``); writes
     ``grid<DxM>_rank<R>.json`` with its launches.  With ``--grid-mode
     decode``, a rank of phase 26 instead (``decode_full``); with
-    ``--grid-mode seq``, of phase 27 (``seq_full``)."""
+    ``--grid-mode seq``, of phase 27 (``seq_full``); with ``--grid-mode
+    seq_attn``, of phase 28 (``seq_attn_full``)."""
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=math.prod(sizes),
                             timeout=timedelta(seconds=GRID_TIMEOUT))
@@ -2743,6 +2815,8 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
         res = {}
         if mode == "seq":
             res = seq_full(grid, rank)
+        elif mode == "seq_attn":
+            res = seq_attn_full(grid, rank, out)
         elif mode == "decode":
             res = decode_full(grid, rank, out)
         elif sizes == GRID_FULL:
@@ -2754,7 +2828,7 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
         if mode == "decode":
             res["launches"] = dict(Counter(res["prefill_launches"])
                                    + Counter(res["decode_launches"]))
-        elif mode != "seq":
+        elif mode not in ("seq", "seq_attn"):
             res["smoke"] = grid_smoke(grid, rank, sizes, out)
             res["decode"] = grid_smoke_decode(grid, rank, sizes, out)
             res["launches"] = counts()
@@ -2940,6 +3014,7 @@ def grid_one_process_decode(arch: str, B: int, row0: int,
 # deepseek-7b at full width with JAX's decode-cache layout (phase 26)
 # ----------------------------------------------------------------------
 PHASE4_FILE = "phase4_reference.pt"
+PHASE4_LOGITS = "phase4_prefill_logits.pt"
 DECODE_GRID = (1, 2)
 
 
@@ -3374,6 +3449,220 @@ def phase_seq(out: str) -> dict[str, int]:
     return dict(launches)
 
 
+# ----------------------------------------------------------------------
+# seq_shard for the dense attention archs (phase 28)
+# ----------------------------------------------------------------------
+# the fp32 step: deepseek-7b at full width cut to SEQ_ATTN_LAYERS layers,
+# B x S (train_4k's rows at half its length: 1024 a rank)
+SEQ_ATTN_LAYERS = 2
+SEQ_ATTN_TRAIN = (2, 2048)
+
+
+class _GradsOnly:
+    """An optimizer that keeps the gradients it is handed (whole: nothing
+    is sharded under ``batch_axes="all"`` without fsdp) and updates
+    nothing, so that a full-width fp32 step holds no moments."""
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return state
+
+
+def seq_attn_full(grid, rank: int, out: str) -> dict:
+    """A rank of phase 28: deepseek-7b at full width (seed 0's draws, as
+    phase 4 serves it) with ``seq_shard`` on the (1,2) grid, ``batch_axes
+    ="all"`` (JAX's setting wherever it splits a sequence): a bf16 forward
+    of phase 4's prompts, this rank's 512 rows of each, against phase 4's
+    kernel-path prefill logits at those rows (``rel_err``), K1's launches
+    and query offsets, the model group's collectives; the same forward
+    with each planted fault; then one fp32 step of the model cut to
+    SEQ_ATTN_LAYERS layers at SEQ_ATTN_TRAIN, its loss and (rank 0) every
+    gradient against one process's step on the same draws."""
+    cfg = configs.get(SERVE_ARCH)
+    run = RunConfig(seq_shard=True, batch_axes="all")
+    prompts = torch.load(f"{out}/{PHASE4_FILE}")["prompts"].cuda()
+    t0 = time.perf_counter()
+    model = Model(cfg, run, dtype=torch.bfloat16, device="cuda", grid=grid)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0, "faults": {},
+           "launches": Counter()}
+    split = model.seq_split(prompts.shape[1])
+    rows = slice(split.start, split.start + split.rows)
+    want = torch.load(f"{out}/{PHASE4_LOGITS}")[:, rows].cuda().float()
+    offsets = Counter()
+    launch_fa = ops._launch_flash
+
+    def k1(q, k, v, causal, scale, q_offset=0):
+        offsets[str(q_offset)] += 1
+        return launch_fa(q, k, v, causal, scale, q_offset)
+
+    def forward():
+        return model.forward({"tokens": prompts})
+
+    ops._launch_flash = k1
+    try:
+        with torch.inference_mode():
+            model.forward({"tokens": prompts[:, :64]})    # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            offsets.clear()
+            model.seq_comm.log = []
+            t0 = time.perf_counter()
+            got = forward()
+            torch.cuda.synchronize()
+            res["forward"] = {
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "launches": counts(), "offsets": dict(offsets),
+                "log": dict(Counter(f"{k} {key}"
+                                    for k, key in model.seq_comm.log)),
+                "rows": [split.start, split.rows], "shape": list(got.shape),
+                "err": rel_err(got.float(), want),
+                "finite": bool(torch.isfinite(got).all()),
+                "peak": torch.cuda.max_memory_allocated()}
+            res["launches"].update(res["forward"]["launches"])
+            del got
+            local = ("positions", lambda self, device=None:
+                     torch.arange(self.rows, device=device))
+            own = ("keys", lambda self, k, v: (k, v))
+            for name, (attr, fn) in {"positions counted from 0": local,
+                                     "keys of the rank's own rows": own
+                                     }.items():
+                keep = getattr(seq_lib.Seq, attr)
+                setattr(seq_lib.Seq, attr, fn)
+                try:
+                    res["faults"][name] = rel_err(forward().float(), want)
+                finally:
+                    setattr(seq_lib.Seq, attr, keep)
+    finally:
+        ops._launch_flash = launch_fa
+    del model, want
+    torch.cuda.empty_cache()
+
+    # one fp32 step at full width, cut in depth, on the grid then (rank 0)
+    # one process's
+    cut = dataclasses.replace(cfg, n_layers=SEQ_ATTN_LAYERS)
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, SEQ_ATTN_TRAIN,
+                                     generator=g).cuda()}
+    steps = {}
+    for name, r, on in (("grid", run, grid), ("one", RunConfig(), None)):
+        if name == "one" and rank != 0:
+            break
+        m = Model(cut, r, dtype=torch.float32, device="cuda", grid=on)
+        m.init(torch.Generator(device="cuda").manual_seed(1))
+        opt = _GradsOnly()
+        step = train.make_train_step(m, opt, r, grid=on)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        offsets.clear()
+        ops._launch_flash = k1
+        try:
+            t0 = time.perf_counter()
+            _, metrics = step({"params": m, "opt": opt.init(m)}, batch)
+            torch.cuda.synchronize()
+        finally:
+            ops._launch_flash = launch_fa
+        steps[name] = {"loss": float(metrics["loss"]), "grads": opt.grads,
+                       "ms": 1e3 * (time.perf_counter() - t0),
+                       "launches": counts(), "offsets": dict(offsets),
+                       "peak": torch.cuda.max_memory_allocated(),
+                       "log": dict(Counter(f"{k} {key}" for k, key in
+                                           step.model_log))}
+        del m, step, opt
+        if name == "grid":
+            res["launches"].update(steps["grid"]["launches"])
+    t = steps["grid"]
+    res["train"] = {k: t[k] for k in ("loss", "ms", "launches", "offsets",
+                                      "peak", "log")}
+    if rank == 0:
+        want = steps["one"]
+        res["train"].update(
+            one_loss=want["loss"], one_ms=want["ms"],
+            grad_err=max(seq_err(g, want["grads"][k])
+                         for k, g in t["grads"].items()),
+            finite=all(bool(torch.isfinite(g).all())
+                       for g in t["grads"].values()))
+    res["launches"] = dict(res["launches"])
+    del steps, t
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_seq_attn(out: str) -> dict[str, int]:
+    """Phase 28: deepseek-7b with ``seq_shard`` on a (1,2) grid of two
+    gloo ranks on this card (``seq_attn_full``).  Each rank's bf16 logits
+    within AGREE_VS_PLAIN_ERR times phase 4's plain path's error (against
+    its fp32 reference) of phase 4's logits at its rows, as phase 26
+    judges; K1 once a layer a rank at the rank's query offset, one K/V
+    all-gather a layer; each planted fault on rank 1 beyond that bound;
+    the fp32 step's loss and every gradient within STEP_TOL of max|·| of
+    one process's, K1 twice a layer a rank (remat).  Returns the
+    launches."""
+    ref = torch.load(f"{out}/{PHASE4_FILE}")
+    t0 = time.perf_counter()
+    # the ranks hold a whole bf16 deepseek-7b each: leave them the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = finish_grid(start_grid(SEQ_GRID, out, "seq_attn"), out)
+    L = configs.get(SERVE_ARCH).n_layers
+    bound = AGREE_VS_PLAIN_ERR * ref["rel_plain"]
+    bad, launches = [], Counter()
+    for k, rk in enumerate(ranks):
+        launches.update(rk["launches"])
+        f, t = rk["forward"], rk["train"]
+        start, rows = f["rows"]
+        print(f"seq_shard {SERVE_ARCH} 1x2 rank {k} bf16 forward of phase "
+              f"4's {SERVE_BATCH} x {SERVE_PROMPT} prompts, rows {start}.."
+              f"{start + rows}: logits {f['shape']} against phase 4's "
+              f"{f['err']:.4e} (limit {AGREE_VS_PLAIN_ERR} x phase 4's plain "
+              f"path's error {ref['rel_plain']:.4e} = {bound:.4e}); finite "
+              f"{f['finite']}; launches {f['launches']}, K1 by query offset "
+              f"{f['offsets']}; model-group collectives {f['log']}; "
+              f"{f['ms']:.1f} ms (two ranks share the card: not a speed); "
+              f"init {rk['init_s']:.1f} s; peak {f['peak'] / 2**30:.3f} GiB")
+        if not (f["err"] <= bound and f["finite"]
+                and f["launches"] == {"K1": L, "K2": 0, "K3": 0}
+                and f["offsets"] == {str(start): L}
+                and f["log"] == {"all-gather seq.kv": L}):
+            bad.append(f"rank {k} forward")
+        for name, err in rk["faults"].items():
+            print(f"seq_shard rank {k} planted fault ({name}, bf16): logits "
+                  f"{err:.4e} from phase 4's")
+        print(f"seq_shard {SERVE_ARCH} cut to {SEQ_ATTN_LAYERS} layers 1x2 "
+              f"rank {k} fp32 step B {SEQ_ATTN_TRAIN[0]} x S "
+              f"{SEQ_ATTN_TRAIN[1]}: loss {t['loss']:.6f}; launches "
+              f"{t['launches']}, K1 by query offset {t['offsets']}; "
+              f"{t['ms']:.1f} ms; model-group collectives {t['log']}; peak "
+              f"{t['peak'] / 2**30:.3f} GiB")
+        want_off = {str(k * SEQ_ATTN_TRAIN[1] // 2): 2 * SEQ_ATTN_LAYERS}
+        if not (t["launches"] == {"K1": 2 * SEQ_ATTN_LAYERS, "K2": 0,
+                                  "K3": 0} and t["offsets"] == want_off):
+            bad.append(f"rank {k} step launches")
+    faults = ranks[1]["faults"]
+    if not all(err > bound for err in faults.values()):
+        bad.append("a planted fault passed the judge")
+    t = ranks[0]["train"]
+    print(f"seq_shard fp32 step against one process's ({t['one_ms']:.1f} "
+          f"ms): loss {t['loss']:.6f} against {t['one_loss']:.6f}; worst "
+          f"gradient {t['grad_err']:.4e} of its max|.| (limit {STEP_TOL}); "
+          f"finite {t['finite']}")
+    if not (t["finite"] and t["grad_err"] <= STEP_TOL and abs(
+            t["loss"] - t["one_loss"]) <= STEP_TOL * abs(t["one_loss"])
+            and ranks[1]["train"]["loss"] == t["loss"]):
+        bad.append("step")
+    if bad:
+        raise AssertionError(f"phase 28 failed: {bad}")
+    print(f"seq_shard attention: phase 28 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
 _ONE_PROCESS: dict = {}
 
 
@@ -3441,6 +3730,8 @@ def main(run_dir: str) -> int:
     launches.update(timed("25 grid", phase_grid))
     launches.update(timed("26 grid decode", phase_grid_decode, run_dir))
     launches.update(timed("27 seq_shard", phase_seq, run_dir))
+    launches.update(timed("28 seq_shard attention", phase_seq_attn,
+                          run_dir))
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]
@@ -3475,7 +3766,7 @@ if __name__ == "__main__":
         p.add_argument("--grid-init", required=True)
         p.add_argument("--grid-dir", required=True)
         p.add_argument("--grid-mode", default="grid",
-                       choices=("grid", "decode", "seq"))
+                       choices=("grid", "decode", "seq", "seq_attn"))
         a = p.parse_args()
         grid_worker(a.grid_rank, mesh_lib.parse(a.grid), a.grid_init,
                     a.grid_dir, a.grid_mode)

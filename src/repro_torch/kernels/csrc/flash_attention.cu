@@ -5,7 +5,9 @@
 // function: blockwise online-softmax attention with an fp32 running max,
 // denominator and accumulator; GQA maps query head h to kv head h / (H/K)
 // by index, never by repeating K/V; causal masking by absolute position
-// with -1e30, KV tiles past the diagonal skipped; the denominator clamped
+// with -1e30, KV tiles past the diagonal skipped (query row i at key
+// position q_off + i: 0 in the TPU kernel, the last S of T or a rank's rows
+// of a split sequence here); the denominator clamped
 // at 1e-30; output in q's dtype.
 //
 // Layout.  q [B,S,H,hd], k [B,T,K,hd], v [B,T,K,hdv] and o [B,S,H,hdv] are
@@ -84,6 +86,7 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   float scale;
   int causal;
+  int q_off;  // query row i sits at key position q_off + i (causal mask)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -133,7 +136,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   }
 
   int n_kt = (p.T + BK - 1) / BK;
-  if (p.causal) n_kt = min(n_kt, (q0 + BQ + BK - 1) / BK);
+  if (p.causal) n_kt = min(n_kt, (p.q_off + q0 + BQ + BK - 1) / BK);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
@@ -163,7 +166,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+      const int qpos = p.q_off + q0 + ty + 16 * i;
       float mx = m[i];
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
@@ -404,7 +407,7 @@ __global__ void __launch_bounds__(TNT) flash_fwd_mma_kernel(Params p) {
   bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   int n_kt = (p.T + TK - 1) / TK;
-  if (p.causal) n_kt = min(n_kt, (q0 + BQ + TK - 1) / TK);
+  if (p.causal) n_kt = min(n_kt, (p.q_off + q0 + BQ + TK - 1) / TK);
 
   load_rows<BQ, DK, LDK>(qs, qg, p.q_ss, q0, p.S, p.hd);
   load_rows<TK, DK, LDK>(ks, kg, p.k_ss, 0, p.T, p.hd);
@@ -482,7 +485,8 @@ __global__ void __launch_bounds__(TNT) flash_fwd_mma_kernel(Params p) {
 
     // scale in fp32, mask the ragged edge and the diagonal, online softmax
     const int k0 = j * TK;
-    const bool edge = k0 + TK > p.T || (p.causal && k0 + TK - 1 > q0);
+    const bool edge =
+        k0 + TK > p.T || (p.causal && k0 + TK - 1 > p.q_off + q0);
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
 #pragma unroll
@@ -492,7 +496,7 @@ __global__ void __launch_bounds__(TNT) flash_fwd_mma_kernel(Params p) {
           float x = s[i][n][e] * p.scale;
           if (edge) {
             const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-            const int qpos = q0 + w0 + i * 16 + g + (e >> 1) * 8;
+            const int qpos = p.q_off + q0 + w0 + i * 16 + g + (e >> 1) * 8;
             if (kpos >= p.T)
               x = -INFINITY;      // past the ragged edge: weight exactly 0
             else if (p.causal && kpos > qpos)
@@ -627,23 +631,26 @@ const char* tiling_name() {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns the
-// cudaError_t of the launch (0 on success); the kernel runs asynchronously
-// on `stream`.
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  q_off: the
+// key position of query row 0 (a causal query block that is not the first
+// rows of the keys: the last S of T, or a rank's rows of a split sequence);
+// it moves the causal mask and the causal tile bound, nothing else, so 0
+// gives the unshifted kernel bit for bit.  Returns the cudaError_t of the
+// launch (0 on success); the kernel runs asynchronously on `stream`.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int S, int T, int H, int K, int hd, int hdv, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, float scale, int causal,
-    void* stream) {
+    int q_off, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
       hd <= 0 || hdv <= 0 || hd > MAX_HD || hdv > MAX_HD || B > 65535 ||
-      (S + 63) / 64 > 65535)
+      (S + 63) / 64 > 65535 || q_off < 0 || (causal && q_off + S > T))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q,    k,    v,    o,    S,    T,    H / K, hd,   hdv,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,  v_ss, v_sh,
-           o_sb, o_ss, o_sh, scale, causal};
+           o_sb, o_ss, o_sh, scale, causal, q_off};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch_hdv<float>(p, B, H, st));
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);

@@ -17,17 +17,18 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import nvcc as _nvcc
+from repro_torch.kernels import ref as _ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 # the C interface (name: argument types, result type); flash_attention_fwd
 # takes q, k, v, o; dtype, B, S, T, H, K, hd, hdv; the 12 element strides;
-# scale, causal, stream
+# scale, causal, q_off, stream
 C_FUNCTIONS = {
     "flash_attention_fwd": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                             + [ctypes.c_longlong] * 12
-                            + [ctypes.c_float, ctypes.c_int,
+                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p], ctypes.c_int),
     "flash_attention_load_kernels": ([], ctypes.c_int),
     "flash_attention_tiling": ([ctypes.c_int] * 3, ctypes.c_char_p),
@@ -60,7 +61,8 @@ def tiling(hd: int, hdv: int, dtype: torch.dtype) -> str:
                                              hdv).decode()
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool = True, q_offset: int = 0) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
@@ -92,17 +94,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if B > 65535 or H > 65535 or S > 65535 * 64:
         raise ValueError(f"batch {B} and heads {H} must be at most 65535, "
                          f"and S {S} at most {65535 * 64}")
+    _ref.check_q_offset(S, k.shape[1], causal, q_offset)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """Launch K1.  q: [B,S,H,hd]; k: [B,T,K,hd]; v: [B,T,K,hd_v] on one card.
+    ``q_offset``: the key position of query row 0, for the causal mask
+    (query row i sees keys 0 .. q_offset + i).
 
     Returns o [B,S,H,hd_v] in q's dtype.  Raises on any input the kernel
     does not take and on a launch the card refuses.
     """
-    _check(q, k, v)
+    _check(q, k, v, causal, q_offset)
     B, S, H, hd = q.shape
     T, K, hdv = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -117,7 +123,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(1), o.stride(2),
-            float(scale), int(bool(causal)), stream)
+            float(scale), int(bool(causal)), int(q_offset), stream)
     if err:
         raise RuntimeError(
             f"flash attention launch failed: error {err} "

@@ -49,49 +49,57 @@ def _recompute_grads(plain, inputs, needs, grads):
     return tuple(next(got) if t.requires_grad else None for t in leaves)
 
 
-def _plain_attention(causal, scale):
+def _plain_attention(causal, scale, q_offset=0):
     def plain(q, k, v):
         return (_ref.flash_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, scale=scale).transpose(1, 2),)
+            causal=causal, scale=scale, q_offset=q_offset).transpose(1, 2),)
     return plain
 
 
-def _launch_flash(q, k, v, causal, scale):
-    o = _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+def _launch_flash(q, k, v, causal, scale, q_offset=0):
+    # the offset is named only where there is one: a call without it is
+    # the unshifted kernel's, as it always was
+    kw = {"q_offset": q_offset} if q_offset else {}
+    o = _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale, **kw)
     flash_attention.launches += 1
     return o
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, q_offset=0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.scale = causal, scale
-        return _launch_flash(q, k, v, causal, scale)
+        ctx.causal, ctx.scale, ctx.q_offset = causal, scale, q_offset
+        return _launch_flash(q, k, v, causal, scale, q_offset)
 
     @staticmethod
     def backward(ctx, g):
-        return _recompute_grads(_plain_attention(ctx.causal, ctx.scale),
-                                ctx.saved_tensors, ctx.needs_input_grad[:3],
-                                (g,)) + (None, None)
+        return _recompute_grads(
+            _plain_attention(ctx.causal, ctx.scale, ctx.q_offset),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], (g,)) + (
+                None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: [B,S,H,hd]; k: [B,T,K,hd]; v: [B,T,K,hd_v] → [B,S,H,hd_v] (GQA).
+    ``q_offset``: the key position of query row 0 for the causal mask
+    (T − S for the last S rows of T; a rank's first row of a sequence
+    split over the model group).
 
-    On the card: K1 forward; backward recomputes ``ref.flash_attention_ref``.
+    On the card: K1 forward; backward recomputes ``ref.flash_attention_ref``
+    at the same offset.
     """
     if q.device.type == "cpu":
-        return _plain_attention(causal, scale)(q, k, v)[0]
+        return _plain_attention(causal, scale, q_offset)(q, k, v)[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, "
                          f"not {q.device}")
     if not _needs_grad(q, k, v):
-        return _launch_flash(q, k, v, causal, scale)
-    return _FlashAttention.apply(q, k, v, causal, scale)
+        return _launch_flash(q, k, v, causal, scale, q_offset)
+    return _FlashAttention.apply(q, k, v, causal, scale, q_offset)
 
 
 flash_attention.launches = 0

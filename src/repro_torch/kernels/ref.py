@@ -13,19 +13,31 @@ import torch
 NEG_INF = -1e30
 
 
+def check_q_offset(S: int, T: int, causal: bool, q_offset: int) -> None:
+    """A query offset is at least 0 and, causal, leaves the S query rows
+    inside the T keys (K1's wrapper checks the same)."""
+    if q_offset < 0 or (causal and q_offset + S > T):
+        raise ValueError(f"q_offset {q_offset} must be at least 0 and, "
+                         f"causal, at most T - S = {T - S}")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        scale: float | None = None) -> torch.Tensor:
-    """q: [B,H,S,hd]; k,v: [B,K,T,hd|hd_v].  Plain softmax attention in fp32."""
+                        scale: float | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: [B,H,S,hd]; k,v: [B,K,T,hd|hd_v].  Plain softmax attention in fp32.
+    ``q_offset``: the key position of query row 0 (causal: row i sees keys
+    0 .. q_offset + i)."""
     B, H, S, hd = q.shape
     K, T = k.shape[1], k.shape[2]
+    check_q_offset(S, T, causal, q_offset)
     G = H // K
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     k = k.repeat_interleave(G, dim=1)
     v = v.repeat_interleave(G, dim=1)
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
     if causal:
-        mask = (torch.arange(S, device=q.device)[:, None]
+        mask = (q_offset + torch.arange(S, device=q.device)[:, None]
                 >= torch.arange(T, device=q.device)[None, :])
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)

@@ -53,9 +53,9 @@ train or prefill cell whose JAX choice is ``seq_shard`` is a skip unless
 the caller names ``seq_shard`` (``--set seq_shard=True``), as JAX's
 ``lower_cell`` honours an explicit override: the rank then takes its
 rows of the batch over the data axes and its piece of the sequence
-(``sync.seq``, a stack of Mamba2 blocks alone), and its halo, state and
-loss collectives are counted on the model group.  A decode cell runs
-unsplit there, as JAX's does (``seq_split``).
+(``sync.seq``; the archs of ``models.model.seq_shardable``), and its
+halo, state, K/V and loss collectives are counted on the model group.
+A decode cell runs unsplit there, as JAX's does (``seq_split``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\

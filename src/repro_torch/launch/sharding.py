@@ -319,11 +319,16 @@ class Placement:
 
 
 def placement(names: Sequence[str], shape: Sequence[int], cfg: ArchConfig,
-              run: RunConfig, mesh) -> Placement:
+              run: RunConfig, mesh, lead: int = 0) -> Placement:
     """Where a rank of ``mesh`` keeps its slice of the parameter at
     ``names``: JAX's "model" entry on its axis, the data entries (every
     axis under ``batch_axes="all"``) on the second-to-last, guarded by
-    what that axis holds (module docstring)."""
+    what that axis holds (module docstring).  ``lead``: the leading
+    repeat axes of a stacked tensor.  A rank keeps every repeat, so
+    where the second-to-last axis is a repeat axis (a stacked vector
+    ``[R, d]``, which JAX's ``batch_axes="all"`` rule splits over the
+    world where it divides R) the tensor stays whole on the data ranks:
+    a vector a layer."""
     spec = param_spec_for(names, shape, cfg, run, mesh)
     nd = len(shape)
     split = run.batch_axes != "all" and mesh.shape.get("model", 1) > 1
@@ -333,7 +338,7 @@ def placement(names: Sequence[str], shape: Sequence[int], cfg: ArchConfig,
                       if (a != "model" or run.batch_axes == "all")
                       and mesh.shape[a] > 1)
     data = False
-    if data_axes and nd >= 2:
+    if data_axes and nd - 2 >= lead:
         n = shape[-2] // (mesh.shape["model"] if model == -2 else 1)
         data = n % _axsize(mesh, data_axes) == 0
     return Placement(model, data)

@@ -63,6 +63,13 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_positions`` ([S] or [B,S]) anchors causal masking for decode;
     ``k_valid_len`` ([B]) masks cache slots beyond the current length.
+
+    The "kernel" path takes self-attention over a whole sequence (S ==
+    T, causal or not) and a causal query block that is the last S rows
+    of the T keys (a rank's rows of a sequence split over the model
+    group, against the keys of every row up to its last): K1 with the
+    query offset T − S.  There ``q_positions``, where given, are those
+    rows' positions, T − S onwards; the plain path reads them.
     """
     if impl not in IMPLS:
         raise ValueError(f"attn_impl {impl!r} is not one of {IMPLS}")
@@ -71,8 +78,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // K
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
 
-    if impl == "kernel" and S == T and k_valid_len is None:
-        return _kops.flash_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "kernel" and k_valid_len is None and (
+            S == T or (causal and S < T)):
+        # the offset is named only where there is one
+        kw = {"q_offset": T - S} if S != T else {}
+        return _kops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                     **kw)
 
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
@@ -193,10 +204,16 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               causal: bool = True,
               use_rope: bool = True,
               impl: str = "kernel",
-              layout=None, heads=None):
+              layout=None, heads=None, seq=None):
     """Self- or cross-attention.  Returns (out, cache).
 
-    Train/prefill: cache is None, full sequence.
+    Train/prefill: cache is None, full sequence.  On a sequence split over
+    the model group (``seq``, a ``sync.seq.Seq``; causal, no cache) x
+    holds this rank's rows, at ``positions`` in the whole (``seq``'s
+    where None): RoPE at those positions, and the queries attend to the
+    k and v of every row up to their last, gathered over the group
+    (``seq.keys``), through K1 with the query offset ``seq.start`` on
+    the "kernel" path.
     Decode: cache = {"k": [B,Tmax,K,hd], "v": ...}; x is [B,S,d] written at
     rows ``cache_index .. cache_index+S`` (a Python int).  The port writes
     the cache in place and returns the same dict.  On a grid ``layout``
@@ -207,6 +224,12 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     """
     if kv_src is not None and cache is not None:
         raise ValueError("cross-attention takes no cache")
+    if seq is not None:
+        if cache is not None or kv_src is not None or not causal:
+            raise ValueError("a split sequence takes causal self-attention "
+                             "without a cache")
+        if positions is None:
+            positions = seq.positions(x.device)
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, hd)
@@ -230,6 +253,9 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         k = apply_rope(k, pos, cfg.rope_theta, cfg.rotary_fraction)
 
     if cache is None:
+        if seq is not None:
+            # this rank's queries, the keys of every row up to its last
+            k, v = seq.keys(k, v)
         out = sdpa(q, k, v, causal=causal, q_positions=positions, impl=impl)
         return out.reshape(B, S, H * hd) @ p["wo"], None
 

@@ -16,8 +16,9 @@ Built on a grid of ranks (``Model(..., grid=)``, ``launch.mesh``), a rank
 holds its slices of what the JAX package's sharding rule splits
 (``launch.sharding``) and runs tensor and expert parallelism over the
 grid's model group (``sync.model_axis``), as JAX's model runs on a mesh;
-under ``RunConfig.seq_shard`` a stack of Mamba2 blocks splits its
-sequence over that group instead (``sync.seq``).
+under ``RunConfig.seq_shard`` a stack of Mamba2 blocks, or a dense
+decoder of GQA attention blocks (``seq_shardable``), splits its sequence
+over that group instead (``sync.seq``).
 Its decode cache is its block of JAX's ``cache_shardings``
 (``launch.sharding.CacheBlock``): its batch rows and, where the rule
 splits it, its rows of the cache's T, every head of them; attention
@@ -120,7 +121,7 @@ def derive_segments(cfg: ArchConfig, *, cross: bool = False,
 # batch over every axis, the MoE combine's reduction): the port reads them
 # on a grid of ranks (``launch.mesh``), whose model group is that axis.
 # ``seq_shard`` (sequence parallelism over "model", ``sync.seq``) is read
-# for a stack of Mamba2 blocks alone (``mamba_only``)
+# for the archs ``seq_shardable`` names
 _READ = ("attn_impl", "ssm_chunk", "remat", "microbatches", "logits_fp32",
          "opt_8bit", "grad_compression", "sync_mode", "fsdp")
 _ON_A_GRID = ("batch_axes", "moe_combine")
@@ -128,15 +129,23 @@ SYNC_MODES = ("barrier", "bucketed")
 BATCH_AXES = ("dp", "all")
 
 
-def mamba_only(cfg: ArchConfig) -> bool:
-    """Whether every block of ``cfg`` is a Mamba2 block: no attention, no
-    MoE, no encoder, no vision prefix, no MTP head (of the ten archs,
-    mamba2-130m; its smoke config adds a dense FFN, pointwise as the
-    block's projections)."""
-    return (not cfg.encoder_layers and not cfg.vision_embed_dim
-            and not cfg.mtp
-            and all(spec.mixer == "mamba" and spec.ffn in ("none", "dense")
-                    for seg in derive_segments(cfg) for spec in seg.pattern))
+def seq_shardable(cfg: ArchConfig) -> bool:
+    """Whether ``RunConfig.seq_shard`` is ported for ``cfg``: no encoder,
+    no vision prefix, no MTP head, and either every block a Mamba2 block
+    (mamba2-130m; its smoke config adds a dense FFN, pointwise as the
+    block's projections) or a dense decoder (``family == "dense"``) of
+    GQA/MHA attention blocks with dense FFNs (deepseek-7b, chatglm3-6b,
+    nemotron-4-15b, deepseek-coder-33b).  MoE, MLA, whisper's encoder and
+    internvl2-2b's vision prefix are not ported."""
+    if cfg.encoder_layers or cfg.vision_embed_dim or cfg.mtp:
+        return False
+    specs = [spec for seg in derive_segments(cfg) for spec in seg.pattern]
+    if all(spec.mixer == "mamba" and spec.ffn in ("none", "dense")
+           for spec in specs):
+        return True
+    return (cfg.family == "dense" and cfg.attn_type != "mla"
+            and all(spec.mixer == "attn" and spec.ffn == "dense"
+                    for spec in specs))
 
 
 def _check_run(run: RunConfig, grid=None,
@@ -144,9 +153,9 @@ def _check_run(run: RunConfig, grid=None,
     """Any field the port does not read, set away from its default, raises
     rather than be ignored without a word: ``batch_axes`` and
     ``moe_combine`` without a ``grid`` (they need its model group), and
-    ``seq_shard`` for any arch but a stack of Mamba2 blocks
-    (``mamba_only``; without a grid it splits nothing there, as JAX's
-    without a mesh)."""
+    ``seq_shard`` for an arch it is not ported for (``seq_shardable``;
+    where it is, without a grid it splits nothing, as JAX's without a
+    mesh)."""
     if run.sync_mode not in SYNC_MODES:
         raise ValueError(f"sync_mode {run.sync_mode!r}: want one of "
                          f"{SYNC_MODES}")
@@ -157,7 +166,7 @@ def _check_run(run: RunConfig, grid=None,
         raise ValueError(f"moe_combine {run.moe_combine!r}: want one of "
                          f"{model_axis.COMBINES}")
     read = _READ + (_ON_A_GRID if grid is not None else ()) + (
-        ("seq_shard",) if cfg is not None and mamba_only(cfg) else ())
+        ("seq_shard",) if cfg is not None and seq_shardable(cfg) else ())
     unread = [f.name for f in dataclasses.fields(run)
               if f.name not in read and getattr(run, f.name) != f.default]
     if unread:
@@ -165,7 +174,8 @@ def _check_run(run: RunConfig, grid=None,
             f"RunConfig fields {unread} need the JAX package's \"model\" "
             f"mesh axis: batch_axes and moe_combine are read on a grid of "
             f"ranks (Model(..., grid=launch.mesh.make_grid(...))); "
-            f"seq_shard is ported only for stacks of Mamba2 blocks")
+            f"seq_shard is ported only for stacks of Mamba2 blocks and "
+            f"dense GQA decoders")
 
 
 def _leaves(tree: dict) -> list:
@@ -212,10 +222,12 @@ class _Layout:
         self.cfg, self.run, self.grid = cfg, run, grid
         self.data, self.model = data, model
 
-    def place(self, names, shape) -> sharding.Placement:
+    def place(self, names, shape, lead: int = 0) -> sharding.Placement:
+        """``lead``: the repeat axes a stacked tensor's ``shape`` starts
+        with (``sharding.placement``)."""
         if self.grid is not None:
             return sharding.placement(names, shape, self.cfg, self.run,
-                                      self.grid)
+                                      self.grid, lead)
         if self.data is not None and shard.shard_axis(
                 names, shape, self.data.world) is not None:
             return _Place(data=True)
@@ -263,7 +275,7 @@ class _Block(nn.Module):
         def empty(*shape, dtype=dtype, name=None):
             shape = lead + shape
             if layout is not None and name is not None:
-                place = layout.place(name.split("."), shape)
+                place = layout.place(name.split("."), shape, len(lead))
                 if place:
                     self.placed[name] = place
                     shape = layout.local(place, shape)
@@ -320,7 +332,9 @@ class _Block(nn.Module):
 
         H, K = cfg.n_heads, cfg.n_kv_heads
         gqa = {"wq": -1, "wk": -1, "wv": -1, "wo": -2}
-        if hasattr(self, "attn"):
+        # a sequence split over the model group (``sync.seq``) runs each
+        # rank's rows on every head and the whole weights, gathered at use
+        if hasattr(self, "attn") and not layout.run.seq_shard:
             if cfg.attn_type == "mla":
                 q = "wq_b" if cfg.q_lora_rank else "wq"
                 self.tp_attn = H % tp == 0 and on(
@@ -335,8 +349,6 @@ class _Block(nn.Module):
                 self.local_cfg, n_heads=H // tp,
                 n_kv_heads=K // tp if cfg.attn_type != "mla" else K)
         if hasattr(self, "mlp") and not layout.run.seq_shard:
-            # (a sequence split over the model group, ``sync.seq``, runs
-            # each rank's rows on the whole weights, gathered at use)
             self.tp_mlp = on("mlp", {name: -2 if name == "w_out" else -1
                                      for name in self.mlp})
         if hasattr(self, "moe"):
@@ -473,7 +485,7 @@ class Model(nn.Module):
         rank a data rank (parameters replicated, or split over the world
         under fsdp); ``run.moe_combine`` picks the experts' combine;
         ``run.seq_shard`` splits an input's sequence over the model group
-        (``seq_split``, ``sync.seq``; a stack of Mamba2 blocks alone)."""
+        (``seq_split``, ``sync.seq``; the archs of ``seq_shardable``)."""
         super().__init__()
         self.cfg = cfg
         self.run = run
@@ -576,13 +588,17 @@ class Model(nn.Module):
         the grid's model group of m ranks: where m divides it (JAX's
         condition, ``src/repro/models/model.py:342-343``) rank k keeps
         rows ``[k·length/m, (k+1)·length/m)`` (a ``sync.seq.Seq``); else,
-        or without ``seq_shard`` on a grid, None: nothing is split.  A
-        split whose rows a rank the chunk does not divide, or fewer than
-        the conv's W−1, raises."""
+        or without ``seq_shard`` on a grid, None: nothing is split.  With
+        Mamba2 blocks a split whose rows a rank the chunk does not divide,
+        or fewer than the conv's W−1, raises; attention blocks take any
+        split."""
         comm = self.seq_comm
         if comm is None or length % comm.world:
             return None
         split = seq_lib.Seq(comm, length)
+        if not any(spec.mixer == "mamba" for seg in self.segments_spec
+                   for spec in seg.pattern):
+            return split
         chunk = min(self.run.ssm_chunk or self.cfg.ssm_chunk, length)
         halo = self.cfg.ssm_conv - 1
         if split.rows % chunk or split.rows < halo:
@@ -662,7 +678,7 @@ class Model(nn.Module):
                                         cache_index=cache_index,
                                         causal=spec.causal,
                                         impl=run.attn_impl,
-                                        layout=layout, heads=heads)
+                                        layout=layout, heads=heads, seq=seq)
             if tp_attn:
                 out = tp.combine(out, "attn")
         else:
@@ -861,13 +877,22 @@ class Model(nn.Module):
         x = rmsnorm(norm, x, self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
             return x @ self._whole("embed", sync, seq).T
-        head, = self._rows(("head",), [{"w": self.lm_head}], None, sync)
+        head, = self._rows(("head",), [{"w": self.lm_head}], None, sync,
+                           seq=seq)
         logits = x @ head["w"]
         if self.vocab != self.cfg.vocab_size:
             cols = torch.arange(self.vocab, device=logits.device)
             neg = torch.where(cols < self.cfg.vocab_size, 0.0, -1e30)
             logits = logits + neg.to(logits.dtype)
         return logits
+
+    @staticmethod
+    def _positions(x: torch.Tensor, seq=None) -> torch.Tensor:
+        """The positions of x's rows in the whole sequence: on a split
+        sequence (``seq``) this rank's, ``seq.start`` onwards."""
+        if seq is not None:
+            return seq.positions(x.device)
+        return torch.arange(x.shape[1], device=x.device)
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
@@ -876,7 +901,7 @@ class Model(nn.Module):
         enc_out = self.encode(batch) if self.cfg.encoder_layers else None
         seq = self.seq_split(batch["tokens"].shape[1])
         x, _ = self._embed_inputs(batch, seq=seq)
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = self._positions(x, seq)
         x, _ = self._run_segments(x, positions=positions, enc_out=enc_out,
                                   seq=seq)
         return self._head(x, seq=seq)
@@ -901,7 +926,7 @@ class Model(nn.Module):
         seq = self.seq_split(tokens.shape[1])
         enc_out = self.encode(batch, sync) if cfg.encoder_layers else None
         x, n_prefix = self._embed_inputs(batch, sync, seq)
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = self._positions(x, seq)
         x, aux = self._run_segments(x, positions=positions, enc_out=enc_out,
                                     sync=sync, seq=seq)
         h = x[:, n_prefix:]                       # text region only

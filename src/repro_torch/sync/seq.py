@@ -18,6 +18,14 @@ its rows.  Two things cross ranks:
   state's part to its chunks' states, whence to y and the final state,
   as a scan from it would.
 
+An attention block runs its projections and RoPE on its rows (at their
+positions in the whole sequence).  Its queries attend causally to the
+keys of every row up to their last: ``keys`` all-gathers every rank's k
+and v rows (one all-gather of both) and hands back the rows ``[0,
+start + rows)``, over which K1 runs with the query offset ``start``; the
+backward reduce-scatters the gathered rows' gradients to their owners
+(one reduce-scatter).
+
 ``total`` sums each rank's part of the loss over the group forward and
 passes the gradient through to every part backward, so that each rank's
 parameter gradients are its rows' part of the whole.
@@ -102,6 +110,28 @@ class _Prefix(torch.autograd.Function):
                 mine[n:].view(ctx.shapes[1]))
 
 
+class _Keys(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm: shard.Comm, k: torch.Tensor, v: torch.Tensor):
+        ctx.comm, ctx.split = comm, k.shape[-1]
+        both = torch.cat([k, v], dim=-1)
+        whole = shard.gather(comm, both.contiguous()[None], 0)
+        comm.note("all-gather", "seq.kv")
+        whole = torch.cat(whole.unbind(0), dim=1)       # [B, m·rows, ...]
+        return (whole[..., :ctx.split].contiguous(),
+                whole[..., ctx.split:].contiguous())
+
+    @staticmethod
+    def backward(ctx, gk, gv):
+        comm = ctx.comm
+        g = torch.cat([gk, gv], dim=-1)                  # [B, m·rows, ...]
+        send = torch.stack(g.chunk(comm.world, dim=1))   # [m, B, rows, ...]
+        mine = send.new_empty(send[0].shape)
+        comm.reduce_scatter(mine.view(-1), send.reshape(-1)).wait()
+        comm.note("reduce-scatter", "seq.kv")
+        return None, mine[..., :ctx.split], mine[..., ctx.split:]
+
+
 class _Total(torch.autograd.Function):
     @staticmethod
     def forward(ctx, comm: shard.Comm, part: torch.Tensor):
@@ -144,6 +174,18 @@ class Seq:
         rank's final ``state`` of a scan from zero and its total ``decay``
         [B, H] (both fp32)."""
         return _Prefix.apply(self.comm, state, decay)
+
+    def positions(self, device=None) -> torch.Tensor:
+        """This rank's rows' positions in the whole sequence."""
+        return self.start + torch.arange(self.rows, device=device)
+
+    def keys(self, k: torch.Tensor, v: torch.Tensor) -> tuple:
+        """The k and v [B, rows, K, ·] of every rank's rows up to this
+        rank's last, ``[0, start + rows)``, gathered over the group; their
+        gradients return to the rows' owners."""
+        k, v = _Keys.apply(self.comm, k, v)
+        end = self.start + self.rows
+        return k[:, :end], v[:, :end]
 
     def total(self, part: torch.Tensor) -> torch.Tensor:
         """The sum over the group of each rank's ``part`` (0-d); its

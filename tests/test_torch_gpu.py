@@ -84,6 +84,33 @@ def test_kernel_matches_plain(cuda, B, S, H, K, hd, hdv, causal, dtype):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("B,S,T,H,K,hd,dtype", [
+    (4, 512, 1024, 32, 32, 128, torch.bfloat16),   # deepseek-7b, rank 1
+    (4, 512, 1024, 32, 32, 128, torch.float32),
+    (4, 512, 1024, 32, 2, 128, torch.bfloat16),    # chatglm3-6b, GQA 32/2
+    (2, 100, 137, 4, 2, 64, torch.bfloat16),       # a ragged offset of 37
+    (2, 100, 137, 4, 2, 64, torch.float32),
+    (2, 64, 64, 4, 4, 64, torch.bfloat16),         # offset 0
+])
+def test_kernel_with_a_query_offset_matches_plain(cuda, B, S, T, H, K, hd,
+                                                  dtype):
+    """Query row i at key position T − S + i: K1 against its plain
+    version at the same offset, and at offset 0 the call without one,
+    bit for bit."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(cuda, dtype)
+               for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=T - S)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True,
+                                   q_offset=T - S)
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
+                               **TOL[dtype])
+    if T == S:
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=True))
+
+
 def test_kernel_takes_grad(cuda):
     """A CUDA input that requires grad runs K1 (counted) and has a
     gradient: the recompute backward through the plain version."""

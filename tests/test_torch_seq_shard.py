@@ -15,8 +15,9 @@ package's ``seq_shard`` step, on the CPU.
   devices (a subprocess with ``--xla_force_host_platform_device_count``).
 - A length the model group does not divide runs unsplit, as JAX's; a
   piece the chunk does not divide, or shorter than the conv's halo,
-  raises; any arch with attention, MoE, an encoder or a vision prefix
-  still raises on a grid.
+  raises; any arch with MoE, MLA, an encoder or a vision prefix still
+  raises on a grid (the dense GQA decoders build: their split steps are
+  ``tests/test_torch_seq_attention.py``'s).
 - The halo and the state prefix alone, on threads standing in for
   ranks: a sequence cut into m pieces gives the whole sequence's
   ``ssd_chunked`` and Mamba2 block, forward and backward.
@@ -418,14 +419,39 @@ def test_seq_shard_without_a_grid_is_one_process():
     assert torch.equal(*losses)
 
 
+# the dense GQA decoders ported since (``models.model.seq_shardable``;
+# their split steps: ``tests/test_torch_seq_attention.py``)
+DENSE = ("deepseek-7b", "chatglm3-6b", "nemotron-4-15b",
+         "deepseek-coder-33b")
+
+
 @pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
                                   if a != ARCH])
 def test_other_archs_still_refuse_seq_shard(arch):
-    """An arch with attention, MoE, an encoder or a vision prefix raises
-    on a grid and without one, naming ``seq_shard`` and the "model"
-    axis."""
+    """An arch with MoE, MLA, an encoder or a vision prefix raises on a
+    grid and without one, naming ``seq_shard`` and the "model" axis.  A
+    dense GQA decoder builds with it: on a (1,2) grid it splits a length
+    the group divides (rows k·S/2 on), and without a grid it splits
+    nothing, its loss the plain model's bit for bit."""
     cfg = tconfigs.get_smoke(arch)
     run = TRunConfig(seq_shard=True)
+    if arch in DENSE:
+        for k in range(2):
+            m = TModel(cfg, run, device="meta",
+                       grid=tmesh.stand_in((1, 2), k))
+            split = m.seq_split(16)
+            assert (split.rows, split.start) == (8, 8 * k)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                               generator=torch.Generator().manual_seed(0))
+        losses = []
+        for r in (TRunConfig(), run):
+            m = TModel(cfg, r, dtype=torch.float32, device="cpu")
+            m.init(torch.Generator().manual_seed(1))
+            assert m.seq_split(16) is None
+            with torch.no_grad():
+                losses.append(m.loss({"tokens": tokens})[0])
+        assert torch.equal(*losses)
+        return
     for grid in (None, tmesh.stand_in((1, 2))):
         with pytest.raises(NotImplementedError, match="seq_shard") as err:
             TModel(cfg, run, device="meta", grid=grid)

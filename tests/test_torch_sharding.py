@@ -144,8 +144,11 @@ def test_a_rank_holds_the_spec_s_bytes(arch, full, sizes):
     shapes equal), and the spec's bytes of it: on the spec's own axes, or
     with the data entry moved to the second-to-last axis.  The only
     exceptions are tensors whose data entry JAX places on an axis that
-    the data ranks divide while the port's axis is not divided: there the
-    port keeps the tensor whole over the data ranks."""
+    the data ranks divide while the port's axis is not divided, and
+    stacked vectors ``[R, d]`` whose repeat axis carries JAX's data entry
+    (``batch_axes="all"`` with fsdp, where the world divides R): a rank
+    keeps every repeat.  There the port keeps the tensor whole over the
+    data ranks."""
     mesh = _mesh(sizes)
     cfg, shapes = _jax_params(arch, full, sizes[-1])
     tcfg = (tconfigs.get if full else tconfigs.get_smoke)(arch)
@@ -172,7 +175,11 @@ def test_a_rank_holds_the_spec_s_bytes(arch, full, sizes):
                 data = [i for i, e in enumerate(spec)
                         if set(tsharding.axes_of(e)) - {"model"}
                         or (run.batch_axes == "all" and e is not None)]
-                assert data and data[0] != len(full_shape) - 2, name
+                stacked_vector = (name.split(".")[0] in ("segments",
+                                                         "encoder")
+                                  and len(full_shape) == 2)
+                assert data and (data[0] != len(full_shape) - 2
+                                 or stacked_vector), name
         assert set(undivided) == set(
             n for n in params if n not in model.shards.data_names
             and _data_split(tcfg, run, grid, n, want[n])), kw

@@ -482,10 +482,10 @@ def test_bf16_steps_at_the_cli_lr_follow_jax_and_lower_the_held_out_loss(
 def test_check_run_still_refuses(field, value, item):
     """Item 5's ``sync_mode`` is ported: ``bucketed`` builds, an unknown
     mode raises, and the fields that need a "model" mesh axis
-    (``seq_shard`` here; ``fsdp`` is ported) still raise, naming
-    themselves and not item 5; item 4's (the optimizer extras) are
-    ported: the model builds and the train state carries them (int8
-    moments, the error accumulator)."""
+    (``seq_shard`` here, for an arch it is not ported for: olmoe-1b-7b;
+    ``fsdp`` is ported) still raise, naming themselves and not item 5;
+    item 4's (the optimizer extras) are ported: the model builds and the
+    train state carries them (int8 moments, the error accumulator)."""
     run = dataclasses.replace(TRunConfig(), **{field: value})
     if item == "item 5":
         assert TModel(tconfigs.get_smoke("deepseek-7b"), run,
@@ -494,7 +494,7 @@ def test_check_run_still_refuses(field, value, item):
             TModel(tconfigs.get_smoke("deepseek-7b"),
                    TRunConfig(sync_mode="ring"), device="cpu")
         with pytest.raises(NotImplementedError, match="seq_shard") as err:
-            TModel(tconfigs.get_smoke("deepseek-7b"),
+            TModel(tconfigs.get_smoke("olmoe-1b-7b"),
                    dataclasses.replace(run, seq_shard=True), device="cpu")
         assert "item 5" not in str(err.value)
         return
