@@ -18,11 +18,14 @@ Phases (each raises on failure):
    20 heads of 64, non-causal), each with the tiling it ran; with a query
    offset (query row i at key position off + i, as a ``seq_shard`` rank
    runs it): B 4, 512 queries over 1024 keys, offset 512, at deepseek-7b's
-   32 heads of 128 in bf16 and fp32 and chatglm3-6b's GQA 32/2, and a
+   32 heads of 128 in bf16 and fp32 and chatglm3-6b's GQA 32/2, phase
+   29's rank 1 shapes (internvl2-2b: B 2, 1536 queries over 3072 keys,
+   GQA 16/8; whisper's decoder: B 4, 224 over 448, 20 heads of 64), and a
    ragged offset of 37 at S 100 on both paths; and its time at the three
-   prefill shapes and at the offset one beside the plain version,
-   ``F.scaled_dot_product_attention`` (a yardstick only; lower-right
-   causal at the offset) and its bound;
+   prefill shapes and at the three bf16 offset ones beside the plain
+   version, ``F.scaled_dot_product_attention`` (a yardstick only;
+   lower-right causal at the offset, k and v repeated to every head) and
+   its bound;
 3. on a small input (the smoke config, fp32), the one-call prefill through
    K1 against token-by-token decode on the plain path;
 4. serve deepseek-7b at full width (bf16, random weights from seed 0):
@@ -258,7 +261,26 @@ Phases (each raises on failure):
    Then one fp32 step of the model cut to SEQ_ATTN_LAYERS layers (every
    width kept) at B 2 × S 2048 (remat: K1 4 launches a rank, offsets 0
    and 1024): the loss and every gradient against one process's on rank
-   0 (STEP_TOL of max|·|).
+   0 (STEP_TOL of max|·|);
+29. ``seq_shard`` with a vision prefix and an encoder: internvl2-2b, then
+   whisper-large-v3, at full width (seed 0) on a (1,2) grid of two gloo
+   ranks on this card (``--grid-mode seq_enc``, one launch for both),
+   ``batch_axes="all"``.  internvl2-2b takes B 2 with its 1024-row
+   vision prefix and 2048 tokens: the split counts the prefix (L 3072,
+   1536 rows a rank; rank 0 holds the prefix and 512 tokens), K1 24
+   launches a rank at offset 0 or 1536.  whisper-large-v3 takes B 4 ×
+   1500 frames and 448 tokens (its text context): each rank runs the
+   encoder whole (K1 32 non-causal launches) and its 224 decoder rows (K1
+   32 at offset 0 or 224, cross-attention plain over every frame).  Each
+   rank's bf16 logits against one process's forward of the same weights
+   at its rows, within AGREE_VS_PLAIN_ERR times the plain path's error
+   against an fp32 copy there; two faults planted on rank 1 of each arch
+   (internvl2-2b: the split counted over the tokens alone, positions from
+   0; whisper-large-v3: keys cut to the rank's own rows, positions from
+   0) must lie beyond that bound.  Then one fp32 step of each cut to
+   SEQ_ENC_LAYERS layers (and encoder layers; every width kept) at the
+   same inputs: the loss and every gradient against one process's on
+   rank 0 (STEP_TOL of max|·|), K1's launches and offsets counted.
 
 The last lines are the script's seconds (by phase, then in all), a
 ``{"kernels": [...]}`` JSON
@@ -470,8 +492,16 @@ K1_TIMED = [PREFILL, MLA_PREFILL, ENC_ATTN]
 OFFSET_PREFILL = Case("offset 512 deepseek-7b", SERVE_BATCH,
                       SERVE_PROMPT // 2, 32, 32, 128, 128, True,
                       torch.bfloat16, SERVE_PROMPT // 2)
+# rank 1 of phase 29's (1,2) grids: internvl2-2b's 1536 rows over 3072
+# (a 1024-row vision prefix and 2048 tokens), GQA 16/8; whisper-large-v3's
+# 224 decoder rows over its 448 tokens
+OFFSET_VLM = Case("offset 1536 internvl2-2b", 2, 1536, 16, 8, 128, 128, True,
+                  torch.bfloat16, 1536)
+OFFSET_DEC = Case("offset 224 whisper decoder", ENC_BATCH, 224, 20, 20, 64,
+                  64, True, torch.bfloat16, 224)
+OFFSET_TIMED = [OFFSET_PREFILL, OFFSET_VLM, OFFSET_DEC]
 OFFSET_CASES = [
-    OFFSET_PREFILL,
+    OFFSET_PREFILL, OFFSET_VLM, OFFSET_DEC,
     dataclasses.replace(OFFSET_PREFILL, name="offset 512 deepseek-7b fp32",
                         dtype=torch.float32),
     Case("offset 512 gqa 32/2 chatglm3-6b", SERVE_BATCH, SERVE_PROMPT // 2,
@@ -802,26 +832,29 @@ def phase_k1() -> dict:
                   f"({ms / library_ms:.2f}x); bound {bound_ms:.4f} ms "
                   f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
             del q, k, v, qt, kt, vt
-        # the offset launch against sdpa with a lower-right causal mask
-        # (query row i sees keys 0 .. T − S + i; a yardstick only)
-        c = OFFSET_PREFILL
-        q, k, v = attention_inputs(c, gen)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lower_right = causal_lower_right(c.S, c.S + c.off)
-        ms, plain_ms, library_ms = (
-            time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                q_offset=c.off)),
-            time_ms(lambda: plain_attention(q, k, v, True, c.off)),
-            time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=lower_right)))
-        bound_ms, bound_by = attention_bound_ms(c)
-        print(f"K1 at the {c.name} shape (B{c.B} S{c.S} T{c.S + c.off} "
-              f"H{c.H} hd{c.hd}/{c.hdv} causal, q_offset {c.off}): "
-              f"{ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa lower-right "
-              f"(yardstick) {library_ms:.4f} ms ({ms / library_ms:.2f}x); "
-              f"bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms:.2f}% of bound")
-        del q, k, v, qt, kt, vt
+        # the offset launches against sdpa with a lower-right causal mask
+        # (query row i sees keys 0 .. T − S + i; a yardstick only; GQA's
+        # k and v repeated to every head for it)
+        for c in OFFSET_TIMED:
+            q, k, v = attention_inputs(c, gen)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            kt, vt = (t.repeat_interleave(c.H // c.K, dim=1)
+                      for t in (kt, vt))
+            lower_right = causal_lower_right(c.S, c.S + c.off)
+            ms, plain_ms, library_ms = (
+                time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                    q_offset=c.off)),
+                time_ms(lambda: plain_attention(q, k, v, True, c.off)),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=lower_right)))
+            bound_ms, bound_by = attention_bound_ms(c)
+            print(f"K1 at the {c.name} shape (B{c.B} S{c.S} T{c.S + c.off}"
+                  f" H{c.H} K{c.K} hd{c.hd}/{c.hdv} causal, q_offset "
+                  f"{c.off}): {ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa "
+                  f"lower-right (yardstick) {library_ms:.4f} ms "
+                  f"({ms / library_ms:.2f}x); bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.2f}% of bound")
+            del q, k, v, qt, kt, vt
     ms, plain_ms, library_ms, bound_ms, bound_by = timed[PREFILL.name]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2805,7 +2838,8 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
     ``grid<DxM>_rank<R>.json`` with its launches.  With ``--grid-mode
     decode``, a rank of phase 26 instead (``decode_full``); with
     ``--grid-mode seq``, of phase 27 (``seq_full``); with ``--grid-mode
-    seq_attn``, of phase 28 (``seq_attn_full``)."""
+    seq_attn``, of phase 28 (``seq_attn_full``); with ``--grid-mode
+    seq_enc``, of phase 29 (``seq_enc_full``)."""
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=math.prod(sizes),
                             timeout=timedelta(seconds=GRID_TIMEOUT))
@@ -2817,6 +2851,8 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
             res = seq_full(grid, rank)
         elif mode == "seq_attn":
             res = seq_attn_full(grid, rank, out)
+        elif mode == "seq_enc":
+            res = seq_enc_full(grid, rank)
         elif mode == "decode":
             res = decode_full(grid, rank, out)
         elif sizes == GRID_FULL:
@@ -2828,7 +2864,7 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
         if mode == "decode":
             res["launches"] = dict(Counter(res["prefill_launches"])
                                    + Counter(res["decode_launches"]))
-        elif mode not in ("seq", "seq_attn"):
+        elif mode not in ("seq", "seq_attn", "seq_enc"):
             res["smoke"] = grid_smoke(grid, rank, sizes, out)
             res["decode"] = grid_smoke_decode(grid, rank, sizes, out)
             res["launches"] = counts()
@@ -3663,6 +3699,293 @@ def phase_seq_attn(out: str) -> dict[str, int]:
     return dict(launches)
 
 
+# ----------------------------------------------------------------------
+# seq_shard with a vision prefix and an encoder (phase 29)
+# ----------------------------------------------------------------------
+# (B, tokens): internvl2-2b's B 2 with its 1024-row vision prefix in front
+# of 2048 tokens (L 3072); whisper-large-v3's B 4 x 1500 frames and 448
+# decoder tokens, its published text context.  The fp32 steps: each model
+# cut to SEQ_ENC_LAYERS layers (whisper also to as many encoder layers),
+# every width kept, at the same inputs
+SEQ_ENC_INPUTS = {TRAIN_ARCH: (2, 2048), ENC_ARCH: (ENC_BATCH, 448)}
+SEQ_ENC_LAYERS = 2
+
+
+def seq_enc_batch(cfg, B: int, S: int) -> dict:
+    """Seeded tokens, and the vision prefix or the audio frames, on the
+    card."""
+    g = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+    if cfg.vision_embed_dim:
+        batch["vision_embeds"] = torch.randn(
+            (B, cfg.vision_seq, cfg.vision_embed_dim), generator=g)
+    if cfg.encoder_layers:
+        batch["audio_embeds"] = torch.randn(
+            (B, cfg.max_source_positions, cfg.d_model), generator=g)
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def first(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``'s leading block of ``like``'s shape (a padded head's
+    columns cut)."""
+    return t[tuple(slice(0, n) for n in like.shape)]
+
+
+@torch.no_grad()
+def copy_padded(src: Model, dst: Model) -> None:
+    """``src``'s parameters (one process's) into ``dst``'s whole ones (a
+    grid's under ``batch_axes="all"``): a head the grid pads to the model
+    group's multiple (internvl2-2b's 92553 columns to 92554, as JAX pads
+    it) gets zero pad columns, which the head masks."""
+    for p, q in zip(src.parameters(), dst.parameters()):
+        q.zero_()
+        first(q, p).copy_(p)
+
+
+def seq_enc_faults(cfg) -> dict:
+    """The planted faults of phase 29: (owner, attribute, replacement)."""
+    local = (seq_lib.Seq, "positions", lambda self, device=None:
+             torch.arange(self.rows, device=device))
+    if cfg.vision_embed_dim:
+        return {"split over the tokens alone": (
+                    Model, "seq_length",
+                    lambda self, batch: batch["tokens"].shape[1]),
+                "positions counted from 0": local}
+    return {"keys of the rank's own rows": (seq_lib.Seq, "keys",
+                                            lambda self, k, v: (k, v)),
+            "positions counted from 0": local}
+
+
+def seq_enc_arch(arch: str, grid, rank: int, k1) -> dict:
+    """One arch of a phase 29 rank: one process's bf16 forward (K1, then
+    the plain path) and an fp32 copy's at this rank's rows; the grid's
+    bf16 forward (counted) against the first, each planted fault; then the
+    fp32 step of the cut model on the grid and (rank 0) in one process.
+    The grid's models take one process's draws (``copy_padded``) and
+    their logits and head gradient are cut to the vocabulary.  ``k1``:
+    the wrapped launcher and its offsets' Counter."""
+    launch, offsets = k1
+    cfg = configs.get(arch)
+    run = RunConfig(seq_shard=True, batch_axes="all")
+    batch = seq_enc_batch(cfg, *SEQ_ENC_INPUTS[arch])
+    res = {"faults": {}, "launches": Counter()}
+    t0 = time.perf_counter()
+    V = cfg.vocab_size
+    with torch.inference_mode():
+        one = Model(cfg, RunConfig(), dtype=torch.bfloat16, device="cuda")
+        one.init(torch.Generator(device="cuda").manual_seed(0))
+        model = Model(cfg, run, dtype=torch.bfloat16, device="cuda",
+                      grid=grid)
+        copy_padded(one, model)
+        split = model.seq_split(model.seq_length(batch))
+        rows = slice(split.start, split.start + split.rows)
+        want = one.forward(batch)[:, rows].float()
+        one.run = dataclasses.replace(one.run, attn_impl="plain")
+        plain = one.forward(batch)[:, rows].float()
+        ref32 = fp32_copy(one, RunConfig(attn_impl="plain"))
+        del one
+        ref = ref32.forward(batch)[:, rows].float()
+        del ref32
+        res["rel_plain"] = rel_err(plain, ref)
+        del plain, ref
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        res["ref_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        offsets.clear()
+        model.seq_comm.log = []
+        ops._launch_flash = launch
+        t0 = time.perf_counter()
+        got = model.forward(batch)[..., :V]
+        torch.cuda.synchronize()
+        res["forward"] = {
+            "ms": 1e3 * (time.perf_counter() - t0),
+            "launches": counts(), "offsets": dict(offsets),
+            "log": dict(Counter(f"{k} {key}"
+                                for k, key in model.seq_comm.log)),
+            "rows": [split.start, split.rows], "length": split.length,
+            "shape": list(got.shape), "err": rel_err(got.float(), want),
+            "finite": bool(torch.isfinite(got).all()),
+            "peak": torch.cuda.max_memory_allocated()}
+        res["launches"].update(res["forward"]["launches"])
+        del got
+        for name, (owner, attr, fn) in seq_enc_faults(cfg).items():
+            keep = getattr(owner, attr)
+            setattr(owner, attr, fn)
+            try:
+                bad = model.forward(batch)[..., :V].float()
+            finally:
+                setattr(owner, attr, keep)
+            n = min(bad.shape[1], want.shape[1])
+            res["faults"][name] = rel_err(bad[:, :n], want[:, :n])
+            del bad
+    del model, want
+    torch.cuda.empty_cache()
+
+    # one fp32 step at full width, cut in depth, on the grid then (rank 0)
+    # one process's
+    cut = dataclasses.replace(cfg, n_layers=SEQ_ENC_LAYERS, encoder_layers=(
+        SEQ_ENC_LAYERS if cfg.encoder_layers else 0))
+    steps = {}
+    src = Model(cut, RunConfig(), dtype=torch.float32, device="cuda")
+    src.init(torch.Generator(device="cuda").manual_seed(1))
+    for name, r, on in (("grid", run, grid), ("one", RunConfig(), None)):
+        if name == "one" and rank != 0:
+            break
+        if on is None:
+            m, src = src, None
+        else:
+            m = Model(cut, r, dtype=torch.float32, device="cuda", grid=on)
+            copy_padded(src, m)
+        opt = _GradsOnly()
+        step = train.make_train_step(m, opt, r, grid=on)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        offsets.clear()
+        t0 = time.perf_counter()
+        _, metrics = step({"params": m, "opt": opt.init(m)}, batch)
+        torch.cuda.synchronize()
+        steps[name] = {"loss": float(metrics["loss"]), "grads": opt.grads,
+                       "ms": 1e3 * (time.perf_counter() - t0),
+                       "launches": counts(), "offsets": dict(offsets),
+                       "peak": torch.cuda.max_memory_allocated(),
+                       "log": dict(Counter(f"{k} {key}" for k, key in
+                                           step.model_log))}
+        del m, step, opt
+    t = steps["grid"]
+    res["launches"].update(t["launches"])
+    res["train"] = {k: t[k] for k in ("loss", "ms", "launches", "offsets",
+                                      "peak", "log")}
+    if rank == 0:
+        want = steps["one"]
+        head = t["grads"]["lm_head"]
+        res["train"].update(
+            one_loss=want["loss"], one_ms=want["ms"],
+            grad_err=max(seq_err(first(g, want["grads"][k]),
+                                 want["grads"][k])
+                         for k, g in t["grads"].items()),
+            pad_grad=float(head[:, V:].abs().max()) if head.shape[1] > V
+            else 0.0,
+            finite=all(bool(torch.isfinite(g).all())
+                       for g in t["grads"].values()))
+    res["launches"] = dict(res["launches"])
+    del steps, t, src
+    torch.cuda.empty_cache()
+    return res
+
+
+def seq_enc_full(grid, rank: int) -> dict:
+    """A rank of phase 29: ``seq_enc_arch`` for internvl2-2b, then
+    whisper-large-v3, K1's launches counted by query offset."""
+    offsets = Counter()
+    launch_fa = ops._launch_flash
+
+    def k1(q, k, v, causal, scale, q_offset=0):
+        offsets[str(q_offset)] += 1
+        return launch_fa(q, k, v, causal, scale, q_offset)
+
+    try:
+        return {arch: seq_enc_arch(arch, grid, rank, (k1, offsets))
+                for arch in SEQ_ENC_INPUTS}
+    finally:
+        ops._launch_flash = launch_fa
+
+
+def seq_enc_want(arch: str, rank: int) -> dict:
+    """K1's launches by query offset on rank ``rank`` of phase 29: the
+    bf16 forward's and the fp32 step's (remat: twice a layer), and the
+    K/V all-gathers of the forward (one a decoder layer)."""
+    cfg = configs.get(arch)
+    B, S = SEQ_ENC_INPUTS[arch]
+    L = S + (cfg.vision_seq if cfg.vision_embed_dim else 0)
+    off = str(rank * L // SEQ_GRID[1])
+
+    def by_offset(dec: int, enc: int) -> dict:
+        got = Counter({off: dec})
+        if enc:                         # the encoder's, non-causal
+            got["0"] += enc
+        return dict(got)
+
+    enc = cfg.encoder_layers and SEQ_ENC_LAYERS
+    return {"forward": by_offset(cfg.n_layers, cfg.encoder_layers),
+            "step": by_offset(2 * SEQ_ENC_LAYERS, 2 * enc),
+            "log": {"all-gather seq.kv": cfg.n_layers}}
+
+
+def phase_seq_enc(out: str) -> dict[str, int]:
+    """Phase 29: internvl2-2b and whisper-large-v3 with ``seq_shard`` on a
+    (1,2) grid of two gloo ranks on this card (``seq_enc_full``).  Each
+    rank's bf16 logits within AGREE_VS_PLAIN_ERR times its plain path's
+    error (against an fp32 copy at its rows) of one process's at its
+    rows; K1's launches by query offset and the K/V all-gathers exact
+    (``seq_enc_want``); each planted fault on rank 1 beyond that bound;
+    each fp32 step's loss and every gradient within STEP_TOL of max|·| of
+    one process's.  Returns the launches."""
+    t0 = time.perf_counter()
+    # the ranks hold whole bf16 models and fp32 copies: leave them the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = finish_grid(start_grid(SEQ_GRID, out, "seq_enc"), out)
+    bad, launches = [], Counter()
+    for arch in SEQ_ENC_INPUTS:
+        B, S = SEQ_ENC_INPUTS[arch]
+        for k, got in enumerate(rk[arch] for rk in ranks):
+            launches.update(got["launches"])
+            f, t = got["forward"], got["train"]
+            want = seq_enc_want(arch, k)
+            bound = AGREE_VS_PLAIN_ERR * got["rel_plain"]
+            start, rows = f["rows"]
+            print(f"seq_shard {arch} 1x2 rank {k} bf16 forward B {B} x "
+                  f"{S} tokens, L {f['length']}, rows {start}.."
+                  f"{start + rows}: logits {f['shape']} against one "
+                  f"process's {f['err']:.4e} (limit {AGREE_VS_PLAIN_ERR} x "
+                  f"the plain path's error {got['rel_plain']:.4e} = "
+                  f"{bound:.4e}); finite {f['finite']}; launches "
+                  f"{f['launches']}, K1 by query offset {f['offsets']}; "
+                  f"model-group collectives {f['log']}; {f['ms']:.1f} ms "
+                  f"(two ranks share the card: not a speed); references "
+                  f"{got['ref_s']:.1f} s; peak {f['peak'] / 2**30:.3f} GiB")
+            if not (f["err"] <= bound and f["finite"]
+                    and f["launches"] == {"K1": sum(want["forward"]
+                                                    .values()),
+                                          "K2": 0, "K3": 0}
+                    and f["offsets"] == want["forward"]
+                    and f["log"] == want["log"]):
+                bad.append(f"{arch} rank {k} forward")
+            for name, err in got["faults"].items():
+                print(f"seq_shard {arch} rank {k} planted fault ({name}, "
+                      f"bf16): logits {err:.4e} from one process's")
+                if k == 1 and not err > bound:
+                    bad.append(f"{arch}: the fault {name} passed the judge")
+            print(f"seq_shard {arch} cut to {SEQ_ENC_LAYERS} layers 1x2 "
+                  f"rank {k} fp32 step: loss {t['loss']:.6f}; launches "
+                  f"{t['launches']}, K1 by query offset {t['offsets']}; "
+                  f"{t['ms']:.1f} ms; model-group collectives {t['log']}; "
+                  f"peak {t['peak'] / 2**30:.3f} GiB")
+            if not (t["launches"] == {"K1": sum(want["step"].values()),
+                                      "K2": 0, "K3": 0}
+                    and t["offsets"] == want["step"]):
+                bad.append(f"{arch} rank {k} step launches")
+        t = ranks[0][arch]["train"]
+        print(f"seq_shard {arch} fp32 step against one process's "
+              f"({t['one_ms']:.1f} ms): loss {t['loss']:.6f} against "
+              f"{t['one_loss']:.6f}; worst gradient {t['grad_err']:.4e} of "
+              f"its max|.| (limit {STEP_TOL}); the head's pad columns' "
+              f"gradient {t['pad_grad']}; finite {t['finite']}")
+        if not (t["finite"] and t["grad_err"] <= STEP_TOL
+                and t["pad_grad"] == 0 and abs(
+                t["loss"] - t["one_loss"]) <= STEP_TOL * abs(t["one_loss"])
+                and ranks[1][arch]["train"]["loss"] == t["loss"]):
+            bad.append(f"{arch} step")
+    if bad:
+        raise AssertionError(f"phase 29 failed: {bad}")
+    print(f"seq_shard prefix and encoder: phase 29 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
 _ONE_PROCESS: dict = {}
 
 
@@ -3732,6 +4055,8 @@ def main(run_dir: str) -> int:
     launches.update(timed("27 seq_shard", phase_seq, run_dir))
     launches.update(timed("28 seq_shard attention", phase_seq_attn,
                           run_dir))
+    launches.update(timed("29 seq_shard prefix, encoder", phase_seq_enc,
+                          run_dir))
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]
@@ -3766,7 +4091,8 @@ if __name__ == "__main__":
         p.add_argument("--grid-init", required=True)
         p.add_argument("--grid-dir", required=True)
         p.add_argument("--grid-mode", default="grid",
-                       choices=("grid", "decode", "seq", "seq_attn"))
+                       choices=("grid", "decode", "seq", "seq_attn",
+                                "seq_enc"))
         a = p.parse_args()
         grid_worker(a.grid_rank, mesh_lib.parse(a.grid), a.grid_init,
                     a.grid_dir, a.grid_mode)

@@ -89,6 +89,7 @@ from repro_torch.launch.roofline import H100, Roofline
 from repro_torch.launch.specs import decode_specs, input_specs
 from repro_torch.launch.train import model_flops
 from repro_torch.models import Model
+from repro_torch.models.model import seq_length
 from repro_torch.optim import AdamW, AdamWConfig, compression
 from repro_torch.sync import shard
 from repro_torch.sync.overlap import GradSync
@@ -162,14 +163,26 @@ def default_run(cfg: ArchConfig, overrides: Optional[dict] = None,
     return run, jax_run
 
 
-def seq_split(shape: ShapeConfig, mesh: tuple[int, ...]) -> bool:
+def seq_split(shape: ShapeConfig, mesh: tuple[int, ...],
+              cfg: Optional[ArchConfig] = None) -> bool:
     """Whether JAX's ``seq_shard`` splits the cell's input over "model":
-    its ``_embed_inputs`` constrains only an input whose length the
-    "model" axis divides (``src/repro/models/model.py:342-343``), and a
-    decode step's one token is divided by no "model" axis of more than
-    one rank, so a decode cell runs unsplit."""
-    n = 1 if shape.kind == "decode" else shape.seq_len
+    its ``_embed_inputs`` constrains only an input whose length (``cfg``'s
+    vision prefix counted, as ``launch.specs`` feeds it) the "model" axis
+    divides (``src/repro/models/model.py:342-343``), and a decode step's
+    one token is divided by no "model" axis of more than one rank, so a
+    decode cell runs unsplit."""
+    n = 1 if shape.kind == "decode" else split_length(shape, cfg)
     return mesh[-1] > 1 and n % mesh[-1] == 0
+
+
+def split_length(shape: ShapeConfig,
+                 cfg: Optional[ArchConfig] = None) -> int:
+    """The rows ``seq_shard`` splits in a train or prefill cell: the
+    tokens and ``cfg``'s vision prefix (``models.model.seq_length`` of
+    the cell's inputs, ``launch.specs.input_specs``, here of no rows)."""
+    if cfg is None:
+        return shape.seq_len
+    return seq_length(cfg, input_specs(cfg, shape, 0))
 
 
 def rank_batch(global_batch: int, mesh: tuple[int, ...],
@@ -388,7 +401,8 @@ def trace_step(cfg: ArchConfig, run: RunConfig, shape: ShapeConfig,
     coll = sum(breakdown.values())
     # one rank's terms against one rank's 6·N·D (its rows and, where
     # seq_shard splits them, its piece of the sequence): chips 1
-    seq = model.seq_split(shape.seq_len) if shape.kind != "decode" else None
+    seq = (model.seq_split(model.seq_length(inputs))
+           if shape.kind != "decode" else None)
     mf = model_flops(cfg, dataclasses.replace(
         shape, global_batch=batch,
         seq_len=seq.rows if seq is not None else shape.seq_len))
@@ -432,14 +446,15 @@ def trace_cell(arch: str, shape_name: str, *, world: int = WORLD,
         run, jax_run = default_run(cfg, run_overrides, shape=shape,
                                    mesh=mesh)
         named = run_overrides is not None and "seq_shard" in run_overrides
-        if jax_run["seq_shard"] and seq_split(shape, mesh) and not named:
+        if jax_run["seq_shard"] and seq_split(shape, mesh, cfg) \
+                and not named:
             return {"arch": arch, "shape": shape_name, "ok": False,
                     "mesh": "x".join(map(str, mesh)), "jax_run": jax_run,
                     "skipped": "JAX's choice here is seq_shard (sequence "
                                "parallelism over \"model\"), which the "
                                "port takes only when asked by name: "
                                "--set seq_shard=True traces it"}
-        split = run.seq_shard and seq_split(shape, mesh)
+        split = run.seq_shard and seq_split(shape, mesh, cfg)
         batch = rank_batch(shape.global_batch, mesh, run, split)
         run, _ = default_run(cfg, run_overrides, batch, shape, mesh)
     else:
@@ -448,7 +463,7 @@ def trace_cell(arch: str, shape_name: str, *, world: int = WORLD,
     m = trace_step(cfg, run, shape, batch, world=world, mesh=mesh)
     where = {"mesh": "x".join(map(str, mesh))} if mesh is not None else {}
     if split:
-        where["seq_per_rank"] = shape.seq_len // mesh[-1]
+        where["seq_per_rank"] = split_length(shape, cfg) // mesh[-1]
     return {
         "arch": arch, "shape": shape_name, "kind": shape.kind,
         "world": world, **where, "global_batch": shape.global_batch,

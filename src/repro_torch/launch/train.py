@@ -57,6 +57,7 @@ from repro_torch.configs.base import ArchConfig, RunConfig, ShapeConfig
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import Model
+from repro_torch.models.model import seq_length
 from repro_torch.optim import AdamW, AdamWConfig, compression, \
     cosine_schedule
 from repro_torch.sync import overlap
@@ -166,7 +167,8 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
     parallelism, gathers at use) run inside the forward and backward, and
     ``train_step.model_log`` holds the last call's, as ``(kind, key)``.
     Under ``run.seq_shard`` a batch whose sequence the model group splits
-    (``Model.seq_split``) splits its rows over the grid's data group
+    (``Model.seq_split`` of its ``seq_length``: a vision prefix counted,
+    the model's own decision) splits its rows over the grid's data group
     only, as JAX's ``seq_shard`` drops "model" from the batch's axes: a
     model group's ranks take the same rows and each its piece of the
     sequence, and their gradients, parts of one, are summed over the
@@ -190,10 +192,11 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
     rank, world = (0, 1) if group is None else (group.rank(), group.size())
     model_comm = model.tp.comm if model.tp is not None else model.seq_comm
     model_log = model_comm.log if model_comm is not None else None
-    # where seq_shard splits a length (``Model.seq_split``), the rows go
-    # over the data group alone; the closures keep no reference to the
-    # model
+    # where seq_shard splits a length (``Model.seq_split`` of its
+    # ``seq_length``), the rows go over the data group alone; the closures
+    # keep no reference to the model
     seq_m = model.seq_comm.world if model.seq_comm is not None else None
+    cfg = model.cfg
     seq_rows = model.grid.data if seq_m is not None else None
 
     def grad_fn(params: Model, batch: dict, mean_over: int):
@@ -238,7 +241,7 @@ def make_train_step(model: Model, optimizer: AdamW, run: RunConfig,
     def train_step(state: dict, batch: dict):
         B, S = batch["tokens"].shape
         r, w = rank, world
-        if seq_m is not None and S % seq_m == 0:
+        if seq_m is not None and seq_length(cfg, batch) % seq_m == 0:
             r, w = seq_rows.rank, seq_rows.world
         if B % w:
             raise ValueError(f"batch {B} does not split over {w} "

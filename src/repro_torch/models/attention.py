@@ -213,7 +213,9 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     where None): RoPE at those positions, and the queries attend to the
     k and v of every row up to their last, gathered over the group
     (``seq.keys``), through K1 with the query offset ``seq.start`` on
-    the "kernel" path.
+    the "kernel" path.  Cross-attention on a split sequence: the rank's
+    rows query the whole ``kv_src`` (every rank holds it), as without a
+    split.
     Decode: cache = {"k": [B,Tmax,K,hd], "v": ...}; x is [B,S,d] written at
     rows ``cache_index .. cache_index+S`` (a Python int).  The port writes
     the cache in place and returns the same dict.  On a grid ``layout``
@@ -224,10 +226,10 @@ def gqa_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     """
     if kv_src is not None and cache is not None:
         raise ValueError("cross-attention takes no cache")
-    if seq is not None:
-        if cache is not None or kv_src is not None or not causal:
+    if seq is not None and kv_src is None:
+        if cache is not None or not causal:
             raise ValueError("a split sequence takes causal self-attention "
-                             "without a cache")
+                             "or cross-attention, without a cache")
         if positions is None:
             positions = seq.positions(x.device)
     B, S, _ = x.shape

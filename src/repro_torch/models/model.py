@@ -130,22 +130,36 @@ BATCH_AXES = ("dp", "all")
 
 
 def seq_shardable(cfg: ArchConfig) -> bool:
-    """Whether ``RunConfig.seq_shard`` is ported for ``cfg``: no encoder,
-    no vision prefix, no MTP head, and either every block a Mamba2 block
-    (mamba2-130m; its smoke config adds a dense FFN, pointwise as the
-    block's projections) or a dense decoder (``family == "dense"``) of
-    GQA/MHA attention blocks with dense FFNs (deepseek-7b, chatglm3-6b,
-    nemotron-4-15b, deepseek-coder-33b).  MoE, MLA, whisper's encoder and
-    internvl2-2b's vision prefix are not ported."""
-    if cfg.encoder_layers or cfg.vision_embed_dim or cfg.mtp:
+    """Whether ``RunConfig.seq_shard`` is ported for ``cfg``: no MTP head,
+    and either every block a Mamba2 block without an encoder or a vision
+    prefix (mamba2-130m; its smoke config adds a dense FFN, pointwise as
+    the block's projections) or a decoder of GQA/MHA attention blocks with
+    dense FFNs (``family`` "dense": deepseek-7b, chatglm3-6b,
+    nemotron-4-15b, deepseek-coder-33b; "vlm", whose vision prefix the
+    split counts: internvl2-2b; "audio", whose encoder runs whole on every
+    rank and whose blocks cross-attend from a rank's rows:
+    whisper-large-v3).  MoE and MLA are not ported."""
+    if cfg.mtp:
         return False
     specs = [spec for seg in derive_segments(cfg) for spec in seg.pattern]
     if all(spec.mixer == "mamba" and spec.ffn in ("none", "dense")
            for spec in specs):
-        return True
-    return (cfg.family == "dense" and cfg.attn_type != "mla"
+        return not (cfg.encoder_layers or cfg.vision_embed_dim)
+    return (cfg.family in ("dense", "vlm", "audio")
+            and cfg.attn_type != "mla"
             and all(spec.mixer == "attn" and spec.ffn == "dense"
                     for spec in specs))
+
+
+def seq_length(cfg: ArchConfig, batch: dict) -> int:
+    """The rows of the sequence ``RunConfig.seq_shard`` splits: the vision
+    prefix's, where ``cfg`` takes the batch's, and the tokens', as JAX
+    constrains x after the prefix is put in front of the tokens
+    (``src/repro/models/model.py:332-353``)."""
+    n = batch["tokens"].shape[1]
+    if cfg.vision_embed_dim and "vision_embeds" in batch:
+        n += batch["vision_embeds"].shape[1]
+    return n
 
 
 def _check_run(run: RunConfig, grid=None,
@@ -175,7 +189,8 @@ def _check_run(run: RunConfig, grid=None,
             f"mesh axis: batch_axes and moe_combine are read on a grid of "
             f"ranks (Model(..., grid=launch.mesh.make_grid(...))); "
             f"seq_shard is ported only for stacks of Mamba2 blocks and "
-            f"dense GQA decoders")
+            f"GQA decoders with dense FFNs (a vision prefix or an encoder "
+            f"allowed)")
 
 
 def _leaves(tree: dict) -> list:
@@ -342,7 +357,7 @@ class _Block(nn.Module):
             else:
                 self.tp_attn = H % tp == 0 and K % tp == 0 and on("attn",
                                                                   gqa)
-        if hasattr(self, "xattn"):
+        if hasattr(self, "xattn") and not layout.run.seq_shard:
             self.tp_xattn = H % tp == 0 and K % tp == 0 and on("xattn", gqa)
         if self.tp_attn or self.tp_xattn:
             self.local_cfg = dataclasses.replace(
@@ -583,11 +598,17 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def seq_length(self, batch: dict) -> int:
+        """The rows of ``batch``'s sequence that ``seq_split`` takes: the
+        vision prefix counted (``seq_length``)."""
+        return seq_length(self.cfg, batch)
+
     def seq_split(self, length: int) -> Optional[seq_lib.Seq]:
-        """How ``run.seq_shard`` splits an input of ``length`` rows over
-        the grid's model group of m ranks: where m divides it (JAX's
-        condition, ``src/repro/models/model.py:342-343``) rank k keeps
-        rows ``[k·length/m, (k+1)·length/m)`` (a ``sync.seq.Seq``); else,
+        """How ``run.seq_shard`` splits an input of ``length`` rows
+        (``seq_length``) over the grid's model group of m ranks: where m
+        divides it (JAX's condition, ``src/repro/models/model.py:342-343``)
+        rank k keeps rows ``[k·length/m, (k+1)·length/m)`` (a
+        ``sync.seq.Seq``); else,
         or without ``seq_shard`` on a grid, None: nothing is split.  With
         Mamba2 blocks a split whose rows a rank the chunk does not divide,
         or fewer than the conv's W−1, raises; attention blocks take any
@@ -696,7 +717,7 @@ class Model(nn.Module):
                 out = tp.combine(out, "xattn")
             else:
                 out, _ = attn.gqa_apply(bp["xattn"], h, cfg, kv_src=enc_out,
-                                        impl=run.attn_impl)
+                                        impl=run.attn_impl, seq=seq)
             x = x + out
         if spec.ffn == "dense":
             h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
@@ -825,42 +846,55 @@ class Model(nn.Module):
         return x, total_aux
 
     # ------------------------------------------------------------------
-    def _encode_layer(self, r: int, x, sync=None):
-        bp, = self._rows(("encoder", r), [self.encoder.stacked()], r, sync)
+    def _encode_layer(self, r: int, x, sync=None, seq=None):
+        bp, = self._rows(("encoder", r), [self.encoder.stacked()], r, sync,
+                         seq=seq)
         return self._apply_block(bp, self.ENC_SPEC, x, block=self.encoder)[0]
 
-    def encode(self, batch: dict, sync=None) -> torch.Tensor:
+    def encode(self, batch: dict, sync=None, seq=None) -> torch.Tensor:
         """Whisper's encoder over precomputed frame embeddings
         ``batch["audio_embeds"]`` [B, frames, d] (the conv front end is a
         stub, as in the JAX package); each layer under
         ``torch.utils.checkpoint`` where ``_run_segments`` would use it.
-        ``sync``: the backward's ``GradSync`` (``loss``)."""
+        ``sync``: the backward's ``GradSync`` (``loss``).  ``seq``: the
+        decoder's split over the model group (``seq_split``); the encoder
+        is not split (JAX's ``_encode`` carries no constraint): every rank
+        of the group runs it whole on the same rows, and its parameters'
+        gradients on a rank are that rank's rows' part, summed over the
+        group as the decoder's are (``_rows``)."""
         x = batch["audio_embeds"].to(self.dtype)
         remat = self.run.remat and torch.is_grad_enabled()
         sync = sync if torch.is_grad_enabled() else None
         for r in range(self.cfg.encoder_layers):
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    self._encode_layer, r, x, sync, use_reentrant=False)
+                    self._encode_layer, r, x, sync, seq, use_reentrant=False)
             else:
-                x = self._encode_layer(r, x, sync)
-        return rmsnorm(self.enc_norm, x, self.cfg.norm_eps)
+                x = self._encode_layer(r, x, sync, seq)
+        norm = (self._whole("enc_norm", sync, seq) if seq is not None
+                else self.enc_norm)
+        return rmsnorm(norm, x, self.cfg.norm_eps)
 
     def _embed_inputs(self, batch: dict, sync=None, seq=None):
         """Token embedding, after the projected vision prefix if any.
-        Returns (x, the prefix's length).  On a split sequence (``seq``)
-        this rank's rows of it, as JAX's ``seq_shard`` constrains x."""
+        Returns (x, the prefix rows in x).  On a split sequence (``seq``)
+        this rank's rows of ``[prefix; tokens]``, as JAX's ``seq_shard``
+        constrains x: the prefix rows that fall in them projected, their
+        tokens embedded (a rank may hold prefix rows only, tokens only, or
+        both; every rank takes both parameters, whose collectives it
+        shares with the group)."""
         tokens = batch["tokens"]
-        if seq is not None:
-            tokens = seq.piece(tokens)
+        vision = bool(self.cfg.vision_embed_dim) and "vision_embeds" in batch
+        n = batch["vision_embeds"].shape[1] if vision else 0
+        lo, hi = ((seq.start, seq.start + seq.rows) if seq is not None
+                  else (0, n + tokens.shape[1]))
+        tokens = tokens[:, max(lo - n, 0):max(hi - n, 0)]
         x = self._whole("embed", sync, seq)[tokens].to(self.dtype)
-        n_prefix = 0
-        if self.cfg.vision_embed_dim and "vision_embeds" in batch:
-            v = batch["vision_embeds"].to(self.dtype) @ self._whole(
-                "vis_proj", sync)
-            x = torch.cat([v, x], dim=1)
-            n_prefix = v.shape[1]
-        return x, n_prefix
+        if not vision:
+            return x, 0
+        v = batch["vision_embeds"][:, min(lo, n):min(hi, n)].to(
+            self.dtype) @ self._whole("vis_proj", sync, seq)
+        return torch.cat([v, x], dim=1), v.shape[1]
 
     def _whole(self, name: str, sync=None, seq=None) -> torch.Tensor:
         """Top-level parameter ``name`` as a use takes it: gathered where
@@ -896,10 +930,12 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict) -> torch.Tensor:
-        """Logits [B, S, vocab]; on a sequence split over the model group
+        """Logits [B, L, vocab] for every row, a vision prefix's included
+        (L: ``seq_length``); on a sequence split over the model group
         (``seq_split``) this rank's rows of them."""
-        enc_out = self.encode(batch) if self.cfg.encoder_layers else None
-        seq = self.seq_split(batch["tokens"].shape[1])
+        seq = self.seq_split(self.seq_length(batch))
+        enc_out = (self.encode(batch, seq=seq) if self.cfg.encoder_layers
+                   else None)
         x, _ = self._embed_inputs(batch, seq=seq)
         positions = self._positions(x, seq)
         x, _ = self._run_segments(x, positions=positions, enc_out=enc_out,
@@ -914,17 +950,22 @@ class Model(nn.Module):
         (a ``sync.overlap.GradSync``) is the backward's gradient sync, which
         ``_run_segments`` wires in bucketed mode.
 
-        On a sequence split over the model group (``seq_split``) each rank
-        sums the CE of its own rows, whose labels it reads from the whole
-        ``tokens`` (the last row's is the next rank's first token), over
-        the batch's B·(S−1) labels, and the ranks' parts are summed
-        (``sync.seq.Seq.total``): the loss is one process's, and each
-        rank's gradients are its rows' part of it."""
+        On a sequence split over the model group (``seq_split``, the
+        vision prefix counted) each rank sums the CE of its own text rows,
+        whose labels it reads from the whole ``tokens`` (text row t's is
+        token t+1, the next rank's first where t is the rank's last; the
+        last token has none), over the batch's B·(S−1) labels, and the
+        ranks' parts are summed (``sync.seq.Seq.total``): the loss is one
+        process's, and each rank's gradients are its rows' part of it.  A
+        rank without a labelled row (prefix rows only) adds an exact 0
+        through its head, so that its backward still reaches every
+        collective it shares with the group."""
         cfg = self.cfg
         sync = sync if torch.is_grad_enabled() else None
         tokens = batch["tokens"]
-        seq = self.seq_split(tokens.shape[1])
-        enc_out = self.encode(batch, sync) if cfg.encoder_layers else None
+        seq = self.seq_split(self.seq_length(batch))
+        enc_out = (self.encode(batch, sync, seq) if cfg.encoder_layers
+                   else None)
         x, n_prefix = self._embed_inputs(batch, sync, seq)
         positions = self._positions(x, seq)
         x, aux = self._run_segments(x, positions=positions, enc_out=enc_out,
@@ -934,14 +975,20 @@ class Model(nn.Module):
             logits = self._head(h[:, :-1], sync)
             labels = tokens[:, 1:]
         else:
-            labels = tokens[:, seq.start + 1:seq.start + seq.rows + 1]
+            # this rank's text rows are t0.. (the prefix has L − S rows)
+            t0 = max(seq.start - (seq.length - tokens.shape[1]), 0)
+            labels = tokens[:, t0 + 1:t0 + h.shape[1] + 1]
             logits = self._head(h[:, :labels.shape[1]], sync, seq)
         if self.run.logits_fp32:
             logits = logits.float()
-        ce = cross_entropy(logits, labels)
-        if seq is not None:
+        if seq is None:
+            ce = cross_entropy(logits, labels)
+        else:
             B, S = tokens.shape
-            ce = seq.total(ce * (labels.numel() / (B * (S - 1))))
+            part = (cross_entropy(logits, labels)
+                    * (labels.numel() / (B * (S - 1)))
+                    if labels.numel() else logits.float().sum() * 0.0)
+            ce = seq.total(part)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + cfg.router_aux_weight * aux
         metrics = {"ce": ce, "aux": aux}

@@ -15,9 +15,10 @@ package's ``seq_shard`` step, on the CPU.
   devices (a subprocess with ``--xla_force_host_platform_device_count``).
 - A length the model group does not divide runs unsplit, as JAX's; a
   piece the chunk does not divide, or shorter than the conv's halo,
-  raises; any arch with MoE, MLA, an encoder or a vision prefix still
-  raises on a grid (the dense GQA decoders build: their split steps are
-  ``tests/test_torch_seq_attention.py``'s).
+  raises; any arch with MoE or MLA still raises on a grid (the GQA
+  decoders build, a vision prefix counted in the length they split:
+  their split steps are ``tests/test_torch_seq_attention.py``'s and
+  ``tests/test_torch_seq_encoder.py``'s).
 - The halo and the state prefix alone, on threads standing in for
   ranks: a sequence cut into m pieces gives the whole sequence's
   ``ssd_chunked`` and Mamba2 block, forward and backward.
@@ -419,37 +420,48 @@ def test_seq_shard_without_a_grid_is_one_process():
     assert torch.equal(*losses)
 
 
-# the dense GQA decoders ported since (``models.model.seq_shardable``;
-# their split steps: ``tests/test_torch_seq_attention.py``)
+# the GQA decoders ported since (``models.model.seq_shardable``; their
+# split steps: ``tests/test_torch_seq_attention.py``, and for the vision
+# prefix and the encoder ``tests/test_torch_seq_encoder.py``)
 DENSE = ("deepseek-7b", "chatglm3-6b", "nemotron-4-15b",
-         "deepseek-coder-33b")
+         "deepseek-coder-33b", "internvl2-2b", "whisper-large-v3")
 
 
 @pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
                                   if a != ARCH])
 def test_other_archs_still_refuse_seq_shard(arch):
-    """An arch with MoE, MLA, an encoder or a vision prefix raises on a
-    grid and without one, naming ``seq_shard`` and the "model" axis.  A
-    dense GQA decoder builds with it: on a (1,2) grid it splits a length
-    the group divides (rows k·S/2 on), and without a grid it splits
-    nothing, its loss the plain model's bit for bit."""
+    """An arch with MoE or MLA raises on a grid and without one, naming
+    ``seq_shard`` and the "model" axis.  A GQA decoder with dense FFNs
+    builds with it: on a (1,2) grid it splits a length the group divides,
+    rows k·L/2 on, L the batch's ``seq_length`` (internvl2-2b's 8 prefix
+    rows and 16 tokens, the others' 16 tokens; whisper-large-v3's frames
+    are its encoder's), and without a grid it splits nothing, its loss
+    the plain model's bit for bit."""
     cfg = tconfigs.get_smoke(arch)
     run = TRunConfig(seq_shard=True)
     if arch in DENSE:
+        g = torch.Generator().manual_seed(0)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                         generator=g)}
+        if cfg.vision_embed_dim:
+            batch["vision_embeds"] = torch.randn(
+                (2, cfg.vision_seq, cfg.vision_embed_dim), generator=g)
+        if cfg.encoder_layers:
+            batch["audio_embeds"] = torch.randn(
+                (2, cfg.max_source_positions, cfg.d_model), generator=g)
+        L = 16 + (cfg.vision_seq if cfg.vision_embed_dim else 0)
         for k in range(2):
             m = TModel(cfg, run, device="meta",
                        grid=tmesh.stand_in((1, 2), k))
-            split = m.seq_split(16)
-            assert (split.rows, split.start) == (8, 8 * k)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 16),
-                               generator=torch.Generator().manual_seed(0))
+            split = m.seq_split(m.seq_length(batch))
+            assert (split.rows, split.start) == (L // 2, L // 2 * k)
         losses = []
         for r in (TRunConfig(), run):
             m = TModel(cfg, r, dtype=torch.float32, device="cpu")
             m.init(torch.Generator().manual_seed(1))
-            assert m.seq_split(16) is None
+            assert m.seq_split(m.seq_length(batch)) is None
             with torch.no_grad():
-                losses.append(m.loss({"tokens": tokens})[0])
+                losses.append(m.loss(batch)[0])
         assert torch.equal(*losses)
         return
     for grid in (None, tmesh.stand_in((1, 2))):
