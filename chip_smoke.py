@@ -83,7 +83,8 @@ Phases (each raises on failure):
    one call, attention through K1 (16 launches), each layer's experts
    through K3 (48 launches: three products a layer), and every decode
    step runs K3 48 times and K1 never; the share of prefill assignments
-   that found their expert full is printed per layer;
+   that found their expert full is printed per layer; its prompts and
+   the served model's bf16 forward of them are kept for phase 30;
 11. the MoE layer at full width: layer 0 of that model on its own inputs
    (4 × 1024 tokens, capacity 640; 4 × 1, the decode step; 1 × 512 at
    capacity factor 0.5, where experts overflow) on the card against the
@@ -236,7 +237,8 @@ Phases (each raises on failure):
    rank 1's partial dropped in every layer must give logits beyond the
    bf16 bound (the judge sees such a fault);
 27. ``seq_shard`` (``sync.seq``): mamba2-130m at full width (seed 0) on a
-   (1,2) grid of two gloo ranks on this card (``--grid-mode seq``),
+   (1,2) grid of two gloo ranks on this card (``--grid-mode seq``: one
+   start of the ranks runs phases 27-30 in turn, ``seq_phases``),
    ``batch_axes="all"`` as JAX picks for it, each rank its half of the
    sequence (the conv's halo from its left neighbour, the SSD state
    handed on as a prefix).  A forward at B 1 × S 32768 (prefill_32k's
@@ -249,8 +251,8 @@ Phases (each raises on failure):
    and every gradient against the one-process step's on rank 0
    (STEP_TOL of max|·|);
 28. ``seq_shard`` for the dense attention archs: deepseek-7b at full width
-   (seed 0, as phase 4) on a (1,2) grid of two gloo ranks on this card
-   (``--grid-mode seq_attn``), ``batch_axes="all"``, each rank 512 rows of
+   (seed 0, as phase 4) on the (1,2) grid of phase 27's ranks,
+   ``batch_axes="all"``, each rank 512 rows of
    each of phase 4's 4 × 1024 prompts at their positions, attending to the
    k and v of every row up to its last (one all-gather a layer) through
    K1 with its query offset (0 and 512, 30 launches a rank).  The bf16
@@ -263,9 +265,8 @@ Phases (each raises on failure):
    and 1024): the loss and every gradient against one process's on rank
    0 (STEP_TOL of max|·|);
 29. ``seq_shard`` with a vision prefix and an encoder: internvl2-2b, then
-   whisper-large-v3, at full width (seed 0) on a (1,2) grid of two gloo
-   ranks on this card (``--grid-mode seq_enc``, one launch for both),
-   ``batch_axes="all"``.  internvl2-2b takes B 2 with its 1024-row
+   whisper-large-v3, at full width (seed 0) on the (1,2) grid of phase
+   27's ranks, ``batch_axes="all"``.  internvl2-2b takes B 2 with its 1024-row
    vision prefix and 2048 tokens: the split counts the prefix (L 3072,
    1536 rows a rank; rank 0 holds the prefix and 512 tokens), K1 24
    launches a rank at offset 0 or 1536.  whisper-large-v3 takes B 4 ×
@@ -280,7 +281,35 @@ Phases (each raises on failure):
    0) must lie beyond that bound.  Then one fp32 step of each cut to
    SEQ_ENC_LAYERS layers (and encoder layers; every width kept) at the
    same inputs: the loss and every gradient against one process's on
-   rank 0 (STEP_TOL of max|·|), K1's launches and offsets counted.
+   rank 0 (STEP_TOL of max|·|), K1's launches and offsets counted;
+30. ``seq_shard`` for the MoE stacks: olmoe-1b-7b at full width (seed 0)
+   on the (1,2) grid of phase 27's ranks, ``batch_axes="dp"``: each rank holds 32 of the 64 experts
+   and 512 rows of each of phase 10's 4 × 1024 prompts; a MoE block
+   gathers the rows over the group, routes the whole 4096 tokens as one
+   call (capacity 640), runs the rank's experts through K3 (48 launches
+   on [32, 640, ·]) and reduce-scatters the partial sums to the rank's
+   rows; attention through K1 at offset 0 or 512 (16).  A bf16 forward,
+   its launches, collectives and drops per layer printed beside phase
+   10's; an fp32 one judged as phase 25 judges a grid (against one
+   process's fp32 forward of the same draws, no farther than its plain
+   attention path, in relative error, in tokens whose routing parts and
+   in drops); rank-local routing planted (each rank's 2048 tokens routed
+   alone at capacity 320) beyond that bound; one process's forward run
+   twice beside it, the witness of its own run-to-run order.  Then one
+   fp32 step of the model cut to SEQ_MOE_LAYERS layers (every width
+   kept) at B 2 × S 2048: the loss and each rank's gradients (its
+   experts' slice, every other tensor whole), the router's included,
+   against one process's, which the ranks take in turn (STEP_TOL of
+   max|·|), each routing's drops one process's.  Then jamba-v0.1-52b at
+   full width cut to SEQ_JAMBA_LAYERS layers (Mamba2 at 0-3, MoE at 1
+   and 3, attention at 4; all 32 fit no card), B 2 × S 2048, 8 of the 16
+   experts a rank: bf16 and fp32 forwards judged the same way against
+   one process's kernel path beside its all-plain path (K1, K2 and K3
+   on the split stack: 1, 4 and 6 launches), rank-local routing planted
+   in fp32, and an fp32 step cut to SEQ_MOE_LAYERS layers (a Mamba2
+   block, then one with MoE); then its smoke config at capacity factor
+   SEQ_JAMBA_CAPACITY: an fp32 forward and step against one process's
+   (STEP_TOL), drops equal.
 
 The last lines are the script's seconds (by phase, then in all), a
 ``{"kernels": [...]}`` JSON
@@ -292,6 +321,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -330,7 +360,8 @@ from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.models import Model, moe  # noqa: E402
-from repro_torch.models.model import SYNC_MODES  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    SYNC_MODES, derive_segments)
 from repro_torch.checkpoint import bridge  # noqa: E402
 from repro_torch.sync import model_axis, shard  # noqa: E402
 from repro_torch.sync import seq as seq_lib  # noqa: E402
@@ -608,6 +639,44 @@ def zero_counts() -> None:
 
 def counts() -> dict[str, int]:
     return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+class _Launches:
+    """K1's launches by query offset and by heads, K3's by experts and by
+    [experts x capacity], read where the wrappers launch: inside a
+    ``with`` block the launchers are wrapped."""
+
+    def __init__(self):
+        self.offsets, self.heads = Counter(), Counter()
+        self.experts, self.slots = Counter(), Counter()
+
+    def __enter__(self):
+        self.launch_fa, self.launch_gmm = ops._launch_flash, ops._launch_gmm
+        ops._launch_flash, ops._launch_gmm = self.k1, self.k3
+        return self
+
+    def __exit__(self, *exc):
+        ops._launch_flash, ops._launch_gmm = self.launch_fa, self.launch_gmm
+
+    def k1(self, q, k, v, causal, scale, q_offset=0):
+        self.offsets[str(q_offset)] += 1
+        self.heads[str(q.shape[2])] += 1
+        return self.launch_fa(q, k, v, causal, scale, q_offset)
+
+    def k3(self, x, w):
+        self.experts[str(x.shape[0])] += 1
+        self.slots[f"{x.shape[0]}x{x.shape[1]}"] += 1
+        return self.launch_gmm(x, w)
+
+    def zero(self) -> None:
+        """The wrappers' counts and these counters, all to 0."""
+        zero_counts()
+        for c in (self.offsets, self.heads, self.experts, self.slots):
+            c.clear()
+
+    def read(self) -> dict:
+        return {"launches": counts(), "offsets": dict(self.offsets),
+                "slots": dict(self.slots)}
 
 
 def sh(*cmd: str) -> str:
@@ -1366,12 +1435,17 @@ def phase_k3() -> dict:
             "library_ms": library_ms}
 
 
-def phase_serve_moe() -> tuple[dict, Served]:
+def phase_serve_moe(out: str) -> tuple[dict, Served]:
+    """Phase 10; its prompts and the served model's bf16 forward of them
+    (``recorded_forward``) are saved to ``out`` for phase 30."""
     cfg = configs.get(MOE_ARCH)
     L = cfg.n_layers
     run = serve_run(cfg, MOE_BATCH, MOE_PROMPT, MOE_GEN,
                     {"K1": (L, 0), "K3": (3 * L, 3 * L)})
     print_drops(run, L)
+    torch.save({"prompts": run.prompts.cpu(),
+                "bf16": recorded_forward(run.model, run.requests)},
+               f"{out}/{PHASE10_FILE}")
     return run.launches, run
 
 
@@ -2610,33 +2684,60 @@ def kept_experts(r: moe.Routing) -> torch.Tensor:
 def recorded_forward(model: Model, batch: dict) -> dict:
     """``model.forward(batch)`` with each MoE layer's routing recorded:
     the logits, and per layer each token's kept experts, top-k ids and
-    top-k margin, on the CPU."""
+    top-k margin, on the CPU, and its dropped assignments."""
     with torch.inference_mode(), moe.recorded_routes() as seen:
         logits = model.forward(batch)
         return {"logits": logits.cpu(),
                 "kept": [kept_experts(x) for x in seen],
                 "ids": [x.ids.cpu() for x in seen],
-                "margins": [x.margins.cpu() for x in seen]}
+                "margins": [x.margins.cpu() for x in seen],
+                "drops": [int(x.dropped) for x in seen]}
+
+
+def drops_dev(got: dict, want: dict) -> int:
+    """The most two ``recorded_forward``s' drops differ by at a layer."""
+    return max(abs(a - b) for a, b in zip(got["drops"], want["drops"]))
+
+
+def moe_reference(batch: dict, path: str,
+                  again: bool = False) -> tuple[float, dict]:
+    """olmoe-1b-7b's one-process fp32 forward of ``batch`` on seed 0's
+    draws, here, on the kernel path and on the plain attention path
+    (``recorded_forward``), saved to ``path`` for a grid's ranks; its
+    seconds.  With ``again`` the kernel path runs twice, and how far the
+    two runs part is returned beside the seconds (else {}): the witness of
+    what one path's own run-to-run order moves (``index_add_`` sums a
+    token's 8 expert outputs in the order the atomics land)."""
+    t0 = time.perf_counter()
+    model = Model(configs.get(MOE_ARCH), RunConfig(), dtype=torch.float32,
+                  device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    ref = {"kernel": recorded_forward(model, batch)}
+    witness = {}
+    if again:
+        got, kern = recorded_forward(model, batch), ref["kernel"]
+        witness = {"rel_err": rel_err(got["logits"], kern["logits"]),
+                   "parted": int(parted(got, kern).sum()),
+                   "drops_dev": drops_dev(got, kern),
+                   "layers": sum(a != b for a, b in zip(got["drops"],
+                                                        kern["drops"]))}
+        del got
+    model.run = dataclasses.replace(model.run, attn_impl="plain")
+    ref["plain"] = recorded_forward(model, batch)
+    torch.save(ref, path)
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0, witness
 
 
 def grid_reference(out: str) -> float:
-    """olmoe-1b-7b's one-process fp32 forward on seed 0's draws and the
-    first training batch, here, on the kernel path and on the plain
-    attention path (``recorded_forward``), saved to ``out`` for the grid's
-    rank 0."""
-    t0 = time.perf_counter()
+    """``moe_reference`` of the first training batch, for phase 25's
+    rank 0; its seconds."""
     r = train.FULL_RUNS[MOE_ARCH]
     cfg = configs.get(MOE_ARCH)
     data = SyntheticLM(DataConfig(cfg.vocab_size, r.seq, r.batch), "cuda")
-    model = Model(cfg, r.run_config(), dtype=torch.float32, device="cuda")
-    model.init(torch.Generator(device="cuda").manual_seed(0))
-    ref = {"kernel": recorded_forward(model, data.batch_at(0))}
-    model.run = dataclasses.replace(model.run, attn_impl="plain")
-    ref["plain"] = recorded_forward(model, data.batch_at(0))
-    torch.save(ref, f"{out}/reference.pt")
-    del model, ref
-    torch.cuda.empty_cache()
-    return time.perf_counter() - t0
+    return moe_reference(data.batch_at(0), f"{out}/reference.pt")[0]
 
 
 def grid_full(grid, rank: int, out: str) -> dict:
@@ -2670,29 +2771,15 @@ def grid_full(grid, rank: int, out: str) -> dict:
         model, opt, run, torch.Generator(device="cuda").manual_seed(0))
     res.update(resident=torch.cuda.memory_allocated() - base,
                resident_want=grid_resident_want(cfg, run, grid, model.vocab))
-    shapes = {"K1": Counter(), "K3": Counter()}
-    # the heads and experts of each launch, read where the wrappers launch
-    launch_fa, launch_gmm = ops._launch_flash, ops._launch_gmm
-
-    def k1(q, *a):
-        shapes["K1"][str(q.shape[2])] += 1
-        return launch_fa(q, *a)
-
-    def k3(x, *a):
-        shapes["K3"][str(x.shape[0])] += 1
-        return launch_gmm(x, *a)
-
-    ops._launch_flash, ops._launch_gmm = k1, k3
     step = train.make_train_step(model, opt, run, grid=grid)
     res.update(losses=[], ms=[], launches=[], heads=[], experts=[],
                log_ok=[])
     want_log = {(k, str(key)): n
                 for (k, key), n in model_axis.step_log(model).items()}
-    try:
+    # the heads and experts of each launch
+    with _Launches() as seen:
         for s in range(GRID_STEPS):
-            zero_counts()
-            for c in shapes.values():
-                c.clear()
+            seen.zero()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step(state, data.batch_at(s))
@@ -2700,13 +2787,11 @@ def grid_full(grid, rank: int, out: str) -> dict:
             res["ms"].append(1e3 * (time.perf_counter() - t0))
             res["losses"].append(float(metrics["loss"]))
             res["launches"].append(counts())
-            res["heads"].append(dict(shapes["K1"]))
-            res["experts"].append(dict(shapes["K3"]))
+            res["heads"].append(dict(seen.heads))
+            res["experts"].append(dict(seen.experts))
             got = Counter((k, str(key)) for k, key in step.model_log)
             res["log_ok"].append(dict(got) == want_log)
             res["log"] = {f"{k} {key}": n for (k, key), n in got.items()}
-    finally:
-        ops._launch_flash, ops._launch_gmm = launch_fa, launch_gmm
     res["peak"] = torch.cuda.max_memory_allocated() - base
     del model, opt, state, step
     torch.cuda.empty_cache()
@@ -2742,7 +2827,9 @@ def judge_grid_logits(got: dict, ref: dict) -> dict:
            "argmax_agree": float((g.argmax(-1) == k.argmax(-1))
                                  .float().mean()),
            "plain_argmax_agree": float((p.argmax(-1) == k.argmax(-1))
-                                       .float().mean())}
+                                       .float().mean()),
+           "drops_dev": drops_dev(got, kern),
+           "plain_drops_dev": drops_dev(plain, kern)}
     res["ok"] = (res["rel_err"] <= AGREE_VS_PLAIN_ERR * res["plain_rel_err"]
                  and res["parted"] <= AGREE_VS_PLAIN_ERR
                  * res["plain_parted"] and margin0 < NEAR_TIE)
@@ -2837,9 +2924,7 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
     (``grid_smoke``) and serving (``grid_smoke_decode``); writes
     ``grid<DxM>_rank<R>.json`` with its launches.  With ``--grid-mode
     decode``, a rank of phase 26 instead (``decode_full``); with
-    ``--grid-mode seq``, of phase 27 (``seq_full``); with ``--grid-mode
-    seq_attn``, of phase 28 (``seq_attn_full``); with ``--grid-mode
-    seq_enc``, of phase 29 (``seq_enc_full``)."""
+    ``--grid-mode seq``, of phases 27-30 (``seq_phases``)."""
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=math.prod(sizes),
                             timeout=timedelta(seconds=GRID_TIMEOUT))
@@ -2848,11 +2933,7 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
         zero_counts()
         res = {}
         if mode == "seq":
-            res = seq_full(grid, rank)
-        elif mode == "seq_attn":
-            res = seq_attn_full(grid, rank, out)
-        elif mode == "seq_enc":
-            res = seq_enc_full(grid, rank)
+            res = seq_phases(grid, rank, out)
         elif mode == "decode":
             res = decode_full(grid, rank, out)
         elif sizes == GRID_FULL:
@@ -2864,7 +2945,7 @@ def grid_worker(rank: int, sizes: tuple, init: str, out: str,
         if mode == "decode":
             res["launches"] = dict(Counter(res["prefill_launches"])
                                    + Counter(res["decode_launches"]))
-        elif mode not in ("seq", "seq_attn", "seq_enc"):
+        elif mode != "seq":
             res["smoke"] = grid_smoke(grid, rank, sizes, out)
             res["decode"] = grid_smoke_decode(grid, rank, sizes, out)
             res["launches"] = counts()
@@ -2894,14 +2975,15 @@ def start_grid(sizes: tuple, out: str, mode: str = "grid") -> tuple:
     return sizes, procs, files
 
 
-def finish_grid(started: tuple, out: str) -> list[dict]:
-    """Wait for ``start_grid``'s ranks, each within GRID_TIMEOUT of the
+def finish_grid(started: tuple, out: str,
+                timeout: float = GRID_TIMEOUT) -> list[dict]:
+    """Wait for ``start_grid``'s ranks, each within ``timeout`` s of the
     start; their records."""
     sizes, procs, files = started
     name = "x".join(map(str, sizes))
     try:
         for p in procs:
-            p.wait(timeout=GRID_TIMEOUT)
+            p.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -2916,7 +2998,7 @@ def finish_grid(started: tuple, out: str) -> list[dict]:
         for k in range(len(procs)):
             print(f"grid {name} rank {k} (exit {codes[k]}), last lines:")
             print("\n".join(Path(f"{out}/grid{name}_rank{k}.log")
-                            .read_text().splitlines()[-30:]))
+                            .read_text().splitlines()[-60:]))
         raise AssertionError(f"phase 25: a rank of the {name} grid failed "
                              f"or hung: {codes}")
     return [json.loads(Path(f"{out}/grid{name}_rank{k}.json").read_text())
@@ -3051,6 +3133,7 @@ def grid_one_process_decode(arch: str, B: int, row0: int,
 # ----------------------------------------------------------------------
 PHASE4_FILE = "phase4_reference.pt"
 PHASE4_LOGITS = "phase4_prefill_logits.pt"
+PHASE10_FILE = "phase10_reference.pt"
 DECODE_GRID = (1, 2)
 
 
@@ -3084,14 +3167,6 @@ def decode_full(grid, rank: int, out: str) -> dict:
     rows = slice(lay.row0, lay.row0 + lay.rows)
     res["same_prompts"] = torch.equal(prompts.cpu(), ref["prompts"][rows])
     tokens = ref["tokens"][rows].to(prompts.device)
-    heads = Counter()
-    launch_fa = ops._launch_flash
-
-    def k1(q, *a):
-        heads[str(q.shape[2])] += 1
-        return launch_fa(q, *a)
-
-    ops._launch_flash = k1
     logs_ok = []
 
     def call(cache, t, i):
@@ -3104,40 +3179,38 @@ def decode_full(grid, rank: int, out: str) -> dict:
         res.setdefault("logs", {})["prefill" if i == 0 else "step"] = {
             f"{k} {key}": n for (k, key), n in got.items()}
         return logits[:, -1].cpu()
-    try:
-        with torch.inference_mode():
-            # warm-up request (cuBLAS handles, allocator), as phase 4's
-            serve.generate(model, dict(requests, tokens=prompts[:, :64]), 2,
-                           batch=B)
-            cache = model.init_cache(B, P + gen)
-            res["cache_bytes"] = sum(t.numel() * t.element_size()
-                                     for seg in cache for c in seg
-                                     for d in c.values()
-                                     for t in d.values())
-            res["cache_want"] = decode_cache_want(cfg, B, P + gen)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            zero_counts()
-            heads.clear()
-            t0 = time.perf_counter()
-            prefill = call(cache, prompts, 0)
-            torch.cuda.synchronize()
-            res["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
-            res["prefill_launches"], res["heads"] = counts(), dict(heads)
-            zero_counts()
-            steps = []
-            t0 = time.perf_counter()
-            for t in range(gen):
-                steps.append(call(cache, tokens[:, t:t + 1], P + t))
-            torch.cuda.synchronize()
-            res["decode_ms"] = 1e3 * (time.perf_counter() - t0) / gen
-            res["decode_launches"] = counts()
-            res["peak"] = torch.cuda.max_memory_allocated()
-            last = (tokens[:, gen - 1:gen], P + gen - 1)
-            capture_merge(model, cache, *last, rank, out)
-            planted = dropped_step(model, cache, *last)
-    finally:
-        ops._launch_flash = launch_fa
+
+    # the heads of each K1 launch
+    with _Launches() as seen, torch.inference_mode():
+        # warm-up request (cuBLAS handles, allocator), as phase 4's
+        serve.generate(model, dict(requests, tokens=prompts[:, :64]), 2,
+                       batch=B)
+        cache = model.init_cache(B, P + gen)
+        res["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for seg in cache for c in seg
+                                 for d in c.values()
+                                 for t in d.values())
+        res["cache_want"] = decode_cache_want(cfg, B, P + gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen.zero()
+        t0 = time.perf_counter()
+        prefill = call(cache, prompts, 0)
+        torch.cuda.synchronize()
+        res["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["prefill_launches"], res["heads"] = counts(), dict(seen.heads)
+        zero_counts()
+        steps = []
+        t0 = time.perf_counter()
+        for t in range(gen):
+            steps.append(call(cache, tokens[:, t:t + 1], P + t))
+        torch.cuda.synchronize()
+        res["decode_ms"] = 1e3 * (time.perf_counter() - t0) / gen
+        res["decode_launches"] = counts()
+        res["peak"] = torch.cuda.max_memory_allocated()
+        last = (tokens[:, gen - 1:gen], P + gen - 1)
+        capture_merge(model, cache, *last, rank, out)
+        planted = dropped_step(model, cache, *last)
     res["logs_ok"] = all(logs_ok)
     if rank == 0:
         torch.save({"prefill_last": prefill, "steps": torch.stack(steps, 1),
@@ -3432,14 +3505,13 @@ def seq_full(grid, rank: int) -> dict:
     return res
 
 
-def phase_seq(out: str) -> dict[str, int]:
+def phase_seq(ranks: list[dict]) -> dict[str, int]:
     """Phase 27: ``seq_shard`` on a (1,2) grid of two gloo ranks on this
-    card (``seq_full``).  Each forward within SEQ_TOL of one process's
-    rows with K2 launched once a layer on each rank; each planted fault
-    beyond SEQ_TOL; the step's loss and every gradient within STEP_TOL of
-    max|·| of one process's.  Returns the launches."""
-    t0 = time.perf_counter()
-    ranks = finish_grid(start_grid(SEQ_GRID, out, "seq"), out)
+    card (``seq_full``; ``ranks``, their records).  Each forward within
+    SEQ_TOL of one process's rows with K2 launched once a layer on each
+    rank; each planted fault beyond SEQ_TOL; the step's loss and every
+    gradient within STEP_TOL of max|·| of one process's.  Returns the
+    launches."""
     cfg = configs.get(SSM_ARCH)
     L = cfg.n_layers
     bad, launches = [], Counter()
@@ -3481,7 +3553,8 @@ def phase_seq(out: str) -> dict[str, int]:
         bad.append("step")
     if bad:
         raise AssertionError(f"phase 27 failed: {bad}")
-    print(f"seq_shard: phase 27 took {time.perf_counter() - t0:.1f} s")
+    print(f"seq_shard: phase 27 took {ranks_seconds(ranks):.1f} s on its "
+          f"ranks")
     return dict(launches)
 
 
@@ -3529,53 +3602,43 @@ def seq_attn_full(grid, rank: int, out: str) -> dict:
     split = model.seq_split(prompts.shape[1])
     rows = slice(split.start, split.start + split.rows)
     want = torch.load(f"{out}/{PHASE4_LOGITS}")[:, rows].cuda().float()
-    offsets = Counter()
-    launch_fa = ops._launch_flash
-
-    def k1(q, k, v, causal, scale, q_offset=0):
-        offsets[str(q_offset)] += 1
-        return launch_fa(q, k, v, causal, scale, q_offset)
+    seen = _Launches()
 
     def forward():
         return model.forward({"tokens": prompts})
 
-    ops._launch_flash = k1
-    try:
-        with torch.inference_mode():
-            model.forward({"tokens": prompts[:, :64]})    # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            zero_counts()
-            offsets.clear()
-            model.seq_comm.log = []
-            t0 = time.perf_counter()
-            got = forward()
-            torch.cuda.synchronize()
-            res["forward"] = {
-                "ms": 1e3 * (time.perf_counter() - t0),
-                "launches": counts(), "offsets": dict(offsets),
-                "log": dict(Counter(f"{k} {key}"
-                                    for k, key in model.seq_comm.log)),
-                "rows": [split.start, split.rows], "shape": list(got.shape),
-                "err": rel_err(got.float(), want),
-                "finite": bool(torch.isfinite(got).all()),
-                "peak": torch.cuda.max_memory_allocated()}
-            res["launches"].update(res["forward"]["launches"])
-            del got
-            local = ("positions", lambda self, device=None:
-                     torch.arange(self.rows, device=device))
-            own = ("keys", lambda self, k, v: (k, v))
-            for name, (attr, fn) in {"positions counted from 0": local,
-                                     "keys of the rank's own rows": own
-                                     }.items():
-                keep = getattr(seq_lib.Seq, attr)
-                setattr(seq_lib.Seq, attr, fn)
-                try:
-                    res["faults"][name] = rel_err(forward().float(), want)
-                finally:
-                    setattr(seq_lib.Seq, attr, keep)
-    finally:
-        ops._launch_flash = launch_fa
+    with seen, torch.inference_mode():
+        model.forward({"tokens": prompts[:, :64]})    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen.zero()
+        model.seq_comm.log = []
+        t0 = time.perf_counter()
+        got = forward()
+        torch.cuda.synchronize()
+        res["forward"] = {
+            "ms": 1e3 * (time.perf_counter() - t0),
+            "launches": counts(), "offsets": dict(seen.offsets),
+            "log": dict(Counter(f"{k} {key}"
+                                for k, key in model.seq_comm.log)),
+            "rows": [split.start, split.rows], "shape": list(got.shape),
+            "err": rel_err(got.float(), want),
+            "finite": bool(torch.isfinite(got).all()),
+            "peak": torch.cuda.max_memory_allocated()}
+        res["launches"].update(res["forward"]["launches"])
+        del got
+        local = ("positions", lambda self, device=None:
+                 torch.arange(self.rows, device=device))
+        own = ("keys", lambda self, k, v: (k, v))
+        for name, (attr, fn) in {"positions counted from 0": local,
+                                 "keys of the rank's own rows": own
+                                 }.items():
+            keep = getattr(seq_lib.Seq, attr)
+            setattr(seq_lib.Seq, attr, fn)
+            try:
+                res["faults"][name] = rel_err(forward().float(), want)
+            finally:
+                setattr(seq_lib.Seq, attr, keep)
     del model, want
     torch.cuda.empty_cache()
 
@@ -3595,18 +3658,14 @@ def seq_attn_full(grid, rank: int, out: str) -> dict:
         step = train.make_train_step(m, opt, r, grid=on)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        offsets.clear()
-        ops._launch_flash = k1
-        try:
+        seen.zero()
+        with seen:
             t0 = time.perf_counter()
             _, metrics = step({"params": m, "opt": opt.init(m)}, batch)
             torch.cuda.synchronize()
-        finally:
-            ops._launch_flash = launch_fa
         steps[name] = {"loss": float(metrics["loss"]), "grads": opt.grads,
                        "ms": 1e3 * (time.perf_counter() - t0),
-                       "launches": counts(), "offsets": dict(offsets),
+                       "launches": counts(), "offsets": dict(seen.offsets),
                        "peak": torch.cuda.max_memory_allocated(),
                        "log": dict(Counter(f"{k} {key}" for k, key in
                                            step.model_log))}
@@ -3630,9 +3689,10 @@ def seq_attn_full(grid, rank: int, out: str) -> dict:
     return res
 
 
-def phase_seq_attn(out: str) -> dict[str, int]:
+def phase_seq_attn(out: str, ranks: list[dict]) -> dict[str, int]:
     """Phase 28: deepseek-7b with ``seq_shard`` on a (1,2) grid of two
-    gloo ranks on this card (``seq_attn_full``).  Each rank's bf16 logits
+    gloo ranks on this card (``seq_attn_full``; ``ranks``, their
+    records).  Each rank's bf16 logits
     within AGREE_VS_PLAIN_ERR times phase 4's plain path's error (against
     its fp32 reference) of phase 4's logits at its rows, as phase 26
     judges; K1 once a layer a rank at the rank's query offset, one K/V
@@ -3641,11 +3701,6 @@ def phase_seq_attn(out: str) -> dict[str, int]:
     one process's, K1 twice a layer a rank (remat).  Returns the
     launches."""
     ref = torch.load(f"{out}/{PHASE4_FILE}")
-    t0 = time.perf_counter()
-    # the ranks hold a whole bf16 deepseek-7b each: leave them the card
-    gc.collect()
-    torch.cuda.empty_cache()
-    ranks = finish_grid(start_grid(SEQ_GRID, out, "seq_attn"), out)
     L = configs.get(SERVE_ARCH).n_layers
     bound = AGREE_VS_PLAIN_ERR * ref["rel_plain"]
     bad, launches = [], Counter()
@@ -3694,8 +3749,8 @@ def phase_seq_attn(out: str) -> dict[str, int]:
         bad.append("step")
     if bad:
         raise AssertionError(f"phase 28 failed: {bad}")
-    print(f"seq_shard attention: phase 28 took "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"seq_shard attention: phase 28 took {ranks_seconds(ranks):.1f} s "
+          f"on its ranks")
     return dict(launches)
 
 
@@ -3756,15 +3811,14 @@ def seq_enc_faults(cfg) -> dict:
             "positions counted from 0": local}
 
 
-def seq_enc_arch(arch: str, grid, rank: int, k1) -> dict:
+def seq_enc_arch(arch: str, grid, rank: int, seen: _Launches) -> dict:
     """One arch of a phase 29 rank: one process's bf16 forward (K1, then
     the plain path) and an fp32 copy's at this rank's rows; the grid's
     bf16 forward (counted) against the first, each planted fault; then the
     fp32 step of the cut model on the grid and (rank 0) in one process.
     The grid's models take one process's draws (``copy_padded``) and
-    their logits and head gradient are cut to the vocabulary.  ``k1``:
-    the wrapped launcher and its offsets' Counter."""
-    launch, offsets = k1
+    their logits and head gradient are cut to the vocabulary.  ``seen``
+    counts K1's launches by query offset."""
     cfg = configs.get(arch)
     run = RunConfig(seq_shard=True, batch_axes="all")
     batch = seq_enc_batch(cfg, *SEQ_ENC_INPUTS[arch])
@@ -3792,16 +3846,14 @@ def seq_enc_arch(arch: str, grid, rank: int, k1) -> dict:
         torch.cuda.synchronize()
         res["ref_s"] = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        offsets.clear()
+        seen.zero()
         model.seq_comm.log = []
-        ops._launch_flash = launch
         t0 = time.perf_counter()
         got = model.forward(batch)[..., :V]
         torch.cuda.synchronize()
         res["forward"] = {
             "ms": 1e3 * (time.perf_counter() - t0),
-            "launches": counts(), "offsets": dict(offsets),
+            "launches": counts(), "offsets": dict(seen.offsets),
             "log": dict(Counter(f"{k} {key}"
                                 for k, key in model.seq_comm.log)),
             "rows": [split.start, split.rows], "length": split.length,
@@ -3842,14 +3894,13 @@ def seq_enc_arch(arch: str, grid, rank: int, k1) -> dict:
         step = train.make_train_step(m, opt, r, grid=on)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        offsets.clear()
+        seen.zero()
         t0 = time.perf_counter()
         _, metrics = step({"params": m, "opt": opt.init(m)}, batch)
         torch.cuda.synchronize()
         steps[name] = {"loss": float(metrics["loss"]), "grads": opt.grads,
                        "ms": 1e3 * (time.perf_counter() - t0),
-                       "launches": counts(), "offsets": dict(offsets),
+                       "launches": counts(), "offsets": dict(seen.offsets),
                        "peak": torch.cuda.max_memory_allocated(),
                        "log": dict(Counter(f"{k} {key}" for k, key in
                                            step.model_log))}
@@ -3879,18 +3930,9 @@ def seq_enc_arch(arch: str, grid, rank: int, k1) -> dict:
 def seq_enc_full(grid, rank: int) -> dict:
     """A rank of phase 29: ``seq_enc_arch`` for internvl2-2b, then
     whisper-large-v3, K1's launches counted by query offset."""
-    offsets = Counter()
-    launch_fa = ops._launch_flash
-
-    def k1(q, k, v, causal, scale, q_offset=0):
-        offsets[str(q_offset)] += 1
-        return launch_fa(q, k, v, causal, scale, q_offset)
-
-    try:
-        return {arch: seq_enc_arch(arch, grid, rank, (k1, offsets))
+    with _Launches() as seen:
+        return {arch: seq_enc_arch(arch, grid, rank, seen)
                 for arch in SEQ_ENC_INPUTS}
-    finally:
-        ops._launch_flash = launch_fa
 
 
 def seq_enc_want(arch: str, rank: int) -> dict:
@@ -3914,20 +3956,16 @@ def seq_enc_want(arch: str, rank: int) -> dict:
             "log": {"all-gather seq.kv": cfg.n_layers}}
 
 
-def phase_seq_enc(out: str) -> dict[str, int]:
+def phase_seq_enc(ranks: list[dict]) -> dict[str, int]:
     """Phase 29: internvl2-2b and whisper-large-v3 with ``seq_shard`` on a
-    (1,2) grid of two gloo ranks on this card (``seq_enc_full``).  Each
+    (1,2) grid of two gloo ranks on this card (``seq_enc_full``;
+    ``ranks``, their records).  Each
     rank's bf16 logits within AGREE_VS_PLAIN_ERR times its plain path's
     error (against an fp32 copy at its rows) of one process's at its
     rows; K1's launches by query offset and the K/V all-gathers exact
     (``seq_enc_want``); each planted fault on rank 1 beyond that bound;
     each fp32 step's loss and every gradient within STEP_TOL of max|·| of
     one process's.  Returns the launches."""
-    t0 = time.perf_counter()
-    # the ranks hold whole bf16 models and fp32 copies: leave them the card
-    gc.collect()
-    torch.cuda.empty_cache()
-    ranks = finish_grid(start_grid(SEQ_GRID, out, "seq_enc"), out)
     bad, launches = [], Counter()
     for arch in SEQ_ENC_INPUTS:
         B, S = SEQ_ENC_INPUTS[arch]
@@ -3982,7 +4020,551 @@ def phase_seq_enc(out: str) -> dict[str, int]:
     if bad:
         raise AssertionError(f"phase 29 failed: {bad}")
     print(f"seq_shard prefix and encoder: phase 29 took "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{ranks_seconds(ranks):.1f} s on its ranks")
+    return dict(launches)
+
+
+# ----------------------------------------------------------------------
+# seq_shard for the MoE stacks (phase 30)
+# ----------------------------------------------------------------------
+# olmoe-1b-7b's fp32 step cut to SEQ_MOE_LAYERS layers (every width
+# kept), B x S: 4096 tokens a call, K3's capacity 640 as in the forward
+SEQ_MOE_LAYERS = 2
+SEQ_MOE_TRAIN = (2, 2048)
+SEQ_MOE_REF = "seq_moe_reference.pt"
+JAMBA_ARCH = "jamba-v0.1-52b"
+# jamba-v0.1-52b at full width, cut in depth (all 32 layers fit no card):
+# the forwards to SEQ_JAMBA_LAYERS layers (Mamba2 at 0-3, MoE at 1 and 3,
+# attention at 4: K2, K3 and K1 on one split stack), its fp32 step to
+# SEQ_MOE_LAYERS (a Mamba2 block, then one with MoE); B x S, 1024 rows a
+# rank, four chunks of 256
+SEQ_JAMBA_LAYERS = 5
+SEQ_JAMBA_FULL = (2, 2048)
+SEQ_JAMBA_REF = "seq_jamba_reference.pt"
+# and at its smoke config (8 layers: 7 Mamba2, 1 attention, MoE at the
+# odd ones; chunk 8) at a capacity factor where its experts overflow,
+# B x S: 32 rows a rank
+SEQ_JAMBA_CAPACITY = 1.0
+SEQ_JAMBA_INPUT = (2, 64)
+
+
+def jamba_tokens() -> torch.Tensor:
+    """The tokens of phase 30's full-width jamba forwards, from seed 6."""
+    return torch.randint(0, configs.get(JAMBA_ARCH).vocab_size,
+                         SEQ_JAMBA_FULL,
+                         generator=torch.Generator().manual_seed(6))
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every wrapper's launch replaced by its kernel's plain version
+    (``repro_torch.kernels.ref``): one process's plain path, the judge's
+    yardstick.  Nothing is launched or counted."""
+    keep = ops._launch_flash, ops._launch_intra_chunk, ops._launch_gmm
+    ops._launch_flash = (lambda q, k, v, causal, scale, q_offset=0:
+                         ops._plain_attention(causal, scale, q_offset)(
+                             q, k, v)[0])
+    ops._launch_intra_chunk = (lambda xh, dt, A, Bm, Cm, chunk:
+                               ops._plain_intra_chunk(chunk)(
+                                   xh, dt, A, Bm, Cm))
+    ops._launch_gmm = ref.gmm_ref
+    try:
+        yield
+    finally:
+        ops._launch_flash, ops._launch_intra_chunk, ops._launch_gmm = keep
+
+
+def jamba_reference(path: str) -> float:
+    """jamba-v0.1-52b cut to SEQ_JAMBA_LAYERS layers in one process, seed
+    0's draws: its bf16 and fp32 forwards of ``jamba_tokens()``, each on
+    the kernels and on their plain versions (``plain_kernels``), recorded
+    (``recorded_forward``) and saved to ``path`` for phase 30's ranks;
+    its seconds."""
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(configs.get(JAMBA_ARCH),
+                              n_layers=SEQ_JAMBA_LAYERS)
+    batch = {"tokens": jamba_tokens().cuda()}
+    refs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = Model(cut, RunConfig(), dtype=dtype, device="cuda")
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        refs[str(dtype)] = {"kernel": recorded_forward(model, batch)}
+        with plain_kernels():
+            refs[str(dtype)]["plain"] = recorded_forward(model, batch)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(refs, path)
+    return time.perf_counter() - t0
+
+
+def rank_local_route(route, m: int, B: int):
+    """The planted fault of phase 30: ``route`` of the gathered [B·L, d]
+    tokens as m calls, one for each rank's rows (their capacity from the
+    rank's B·L/m tokens), the slots laid side by side: each rank's rows
+    routed alone through every expert, as if no row were gathered."""
+    def local(x2, router, cfg):
+        idx = torch.arange(x2.shape[0], device=x2.device).view(B, -1)
+        parts = []
+        for mine in idx.chunk(m, dim=1):
+            mine = mine.reshape(-1)
+            r = route(x2[mine], router, cfg)
+            parts.append(dataclasses.replace(r, tok=mine[r.tok]))
+        return dataclasses.replace(
+            parts[0], counts=sum(r.counts for r in parts),
+            **{f: torch.cat([getattr(r, f) for r in parts], dim=1)
+               for f in ("tok", "gate", "valid")})
+    return local
+
+
+def seq_log(log) -> dict:
+    """The ``seq.*`` collectives of a model group's log, counted."""
+    return dict(Counter(f"{k} {key}" for k, key in log
+                        if str(key).startswith("seq.")))
+
+
+def seq_moe_forward(model: Model, batch: dict, want: dict,
+                    seen: _Launches, fault: bool) -> dict:
+    """A phase 30 forward of ``batch`` on a grid (``recorded_forward``)
+    against one process's ``want`` (``{"kernel": …}``, and ``"plain"``
+    where it has one) at this rank's rows: launches, the model group's
+    collectives, drops beside one process's, the logits' error and the
+    tokens whose routing parts; ``judge_grid_logits`` where there is a
+    plain path; with ``fault``, the logits' error with rank-local
+    routing planted."""
+    split = model.seq_split(batch["tokens"].shape[1])
+    rows = slice(split.start, split.start + split.rows)
+    want = {k: dict(v, logits=v["logits"][:, rows].float())
+            for k, v in want.items()}
+    kern = want["kernel"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen.zero()
+    model.seq_comm.log = []
+    t0 = time.perf_counter()
+    got = recorded_forward(model, batch)
+    torch.cuda.synchronize()
+    f = {"ms": 1e3 * (time.perf_counter() - t0), **seen.read(),
+         "log": seq_log(model.seq_comm.log),
+         "rows": [split.start, split.rows],
+         "drops": got["drops"], "one_drops": kern["drops"],
+         "finite": bool(torch.isfinite(got["logits"]).all()),
+         "peak": torch.cuda.max_memory_allocated(),
+         "err": rel_err(got["logits"].float(), kern["logits"]),
+         "parted": int(parted(got, kern).sum())}
+    if "plain" in want:
+        f["judge"] = judge_grid_logits(got, want)
+    if fault:
+        keep = moe.route
+        moe.route = rank_local_route(keep, split.comm.world,
+                                     batch["tokens"].shape[0])
+        try:
+            with torch.inference_mode():
+                bad = model.forward(batch).float().cpu()
+        finally:
+            moe.route = keep
+        f["fault"] = rel_err(bad, kern["logits"])
+    return f
+
+
+def fp32_step(cfg, run: RunConfig, grid, tokens: torch.Tensor,
+              seen: _Launches) -> dict:
+    """One fp32 step of ``cfg`` from seed 1's draws (on ``grid``, or one
+    process's: None): its loss, this rank's gradients as the step hands
+    them on (a sharded tensor's slice, the rest whole), ms, peak,
+    launches, each routing's drops (remat routes each layer twice), the
+    model group's collectives, and ``mine``: this rank's part of a whole
+    tensor, by name."""
+    m = Model(cfg, run, dtype=torch.float32, device="cuda", grid=grid)
+    m.init(torch.Generator(device="cuda").manual_seed(1))
+    opt = _GradsOnly()
+    step = train.make_train_step(m, opt, run, grid=grid)
+    shards = getattr(m, "shards", None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen.zero()
+    t0 = time.perf_counter()
+    with moe.recorded_routes() as routes:
+        _, metrics = step({"params": m, "opt": opt.init(m)},
+                          {"tokens": tokens})
+    torch.cuda.synchronize()
+    res = {"loss": float(metrics["loss"]), "grads": opt.grads,
+           "ms": 1e3 * (time.perf_counter() - t0),
+           "peak": torch.cuda.max_memory_allocated(),
+           "drops": [int(r.dropped) for r in routes],
+           "log": seq_log(step.model_log), **seen.read(),
+           "mine": lambda k, w: (shards.mine(w, k)
+                                 if shards and k in shards else w)}
+    del m, step, opt
+    return res
+
+
+def seq_moe_step(cfg, run: RunConfig, grid, tokens: torch.Tensor,
+                 seen: _Launches) -> dict:
+    """``fp32_step`` on ``grid``, then one process's on the same draws,
+    which the ranks take in turn (the card holds one at a time, and the
+    ranks' own gradients wait on the host): beside the grid step's
+    record, one process's loss, ms and drops, and the worst of this
+    rank's gradients (its experts' slice, every other tensor whole) of
+    its max|·| from one process's."""
+    t = fp32_step(cfg, run, grid, tokens, seen)
+    grads = {k: g.cpu() for k, g in t.pop("grads").items()}
+    mine = t.pop("mine")
+    t["finite"] = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    # a model leaves the card only once gc breaks its reference cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn != dist.get_rank():
+            continue
+        one = fp32_step(cfg, RunConfig(), None, tokens, seen)
+        t.update(one_loss=one["loss"], one_ms=one["ms"],
+                 one_drops=one["drops"],
+                 grad_err=max(seq_err(g.cuda(), mine(k, one["grads"][k]))
+                              for k, g in grads.items()))
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    return t
+
+
+def seq_moe_olmoe(grid, out: str, seen: _Launches) -> dict:
+    """olmoe-1b-7b on a phase 30 rank: with ``seq_shard`` under
+    ``batch_axes="dp"`` (32 of the 64 experts a rank) a bf16 forward of
+    phase 10's prompts (this rank's 512 rows of each) against phase 10's
+    one-process forward, then an fp32 one judged against
+    ``moe_reference``'s (``judge_grid_logits`` at this rank's rows), and
+    again with rank-local routing planted; then the fp32 step of the
+    model cut to SEQ_MOE_LAYERS layers (``seq_moe_step``)."""
+    cfg = configs.get(MOE_ARCH)
+    run = RunConfig(seq_shard=True)
+    p10 = torch.load(f"{out}/{PHASE10_FILE}")
+    batch = {"tokens": p10["prompts"].cuda()}
+    res = {"forward": {}, "launches": Counter()}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = Model(cfg, run, dtype=dtype, device="cuda", grid=grid)
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        if dtype == torch.bfloat16:
+            want = {"kernel": p10["bf16"]}
+            with torch.inference_mode():        # warm-up
+                model.forward({"tokens": batch["tokens"][:, :64]})
+        else:
+            want = torch.load(f"{out}/{SEQ_MOE_REF}")
+        f = seq_moe_forward(model, batch, want, seen,
+                            fault=dtype == torch.float32)
+        res["launches"].update(f["launches"])
+        res["forward"][str(dtype)] = f
+        del model, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=SEQ_MOE_LAYERS)
+    tokens = torch.randint(0, cfg.vocab_size, SEQ_MOE_TRAIN,
+                           generator=torch.Generator().manual_seed(4)
+                           ).cuda()
+    res["train"] = seq_moe_step(cut, run, grid, tokens, seen)
+    res["launches"].update(res["train"]["launches"])
+    return res
+
+
+def seq_moe_jamba(grid, out: str, seen: _Launches) -> dict:
+    """jamba-v0.1-52b on a phase 30 rank (``seq_shard``, ``batch_axes=
+    "dp"``: 8 of the 16 experts a rank).  At full width: bf16 and fp32
+    forwards of the model cut to SEQ_JAMBA_LAYERS layers, this rank's
+    rows of ``jamba_tokens()``, each judged against ``jamba_reference``'s
+    (``judge_grid_logits``), the fp32 one again with rank-local routing
+    planted; the fp32 step of the model cut to SEQ_MOE_LAYERS layers.
+    Then at the smoke config and SEQ_JAMBA_CAPACITY: an fp32 forward
+    against one process's at this rank's rows, and an fp32 step.  K1, K2
+    and K3 all run on one split stack."""
+    cfg = configs.get(JAMBA_ARCH)
+    run = RunConfig(seq_shard=True)
+    res = {"forward": {}, "launches": Counter()}
+    batch = {"tokens": jamba_tokens().cuda()}
+    refs = torch.load(f"{out}/{SEQ_JAMBA_REF}", mmap=True)
+    cut = dataclasses.replace(cfg, n_layers=SEQ_JAMBA_LAYERS)
+    for dtype in (torch.bfloat16, torch.float32):
+        model = Model(cut, run, dtype=dtype, device="cuda", grid=grid)
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        f = seq_moe_forward(model, batch, refs[str(dtype)], seen,
+                            fault=dtype == torch.float32)
+        res["launches"].update(f["launches"])
+        res["forward"][str(dtype)] = f
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del refs
+    res["train"] = seq_moe_step(
+        dataclasses.replace(cfg, n_layers=SEQ_MOE_LAYERS), run, grid,
+        batch["tokens"], seen)
+    res["launches"].update(res["train"]["launches"])
+
+    smoke = dataclasses.replace(configs.get_smoke(JAMBA_ARCH),
+                                capacity_factor=SEQ_JAMBA_CAPACITY)
+    tokens = torch.randint(0, smoke.vocab_size, SEQ_JAMBA_INPUT,
+                           generator=torch.Generator().manual_seed(5)
+                           ).cuda()
+    got = {}
+    for name, r, on in (("grid", run, grid), ("one", RunConfig(), None)):
+        m = Model(smoke, r, dtype=torch.float32, device="cuda", grid=on)
+        m.init(torch.Generator(device="cuda").manual_seed(1))
+        seen.zero()
+        got[name] = dict(recorded_forward(m, {"tokens": tokens}),
+                         **seen.read())
+        del m
+    split = seq_lib.Seq(grid.model, tokens.shape[1])
+    rows = slice(split.start, split.start + split.rows)
+    f, want = got["grid"], got["one"]
+    res["smoke_forward"] = {
+        "rows": [split.start, split.rows], "drops": f["drops"],
+        "one_drops": want["drops"],
+        "err": seq_err(f["logits"], want["logits"][:, rows]),
+        **{k: f[k] for k in ("launches", "offsets", "slots")}}
+    res["launches"].update(f["launches"])
+    res["smoke_train"] = seq_moe_step(smoke, run, grid, tokens, seen)
+    res["launches"].update(res["smoke_train"]["launches"])
+    res["launches"] = dict(res["launches"])
+    return res
+
+
+def seq_moe_full(grid, rank: int, out: str) -> dict:
+    """A rank of phase 30: ``seq_moe_olmoe``, then ``seq_moe_jamba``,
+    K1's launches counted by query offset and K3's by shape."""
+    with _Launches() as seen:
+        res = {MOE_ARCH: seq_moe_olmoe(grid, out, seen),
+               JAMBA_ARCH: seq_moe_jamba(grid, out, seen)}
+    res["launches"] = dict(sum((Counter(r["launches"])
+                                for r in res.values()), Counter()))
+    return res
+
+
+def seq_moe_want(cfg, rank: int, S: int, steps: int = 1) -> dict:
+    """The launches of one forward (``steps`` 1) or one remat step (2) of
+    ``cfg`` on rank ``rank`` of phase 30 at length S: K1 (one an
+    attention layer, each at the rank's query offset), K2 (one a Mamba2
+    layer), K3 (three a MoE layer); and a forward's ``seq.*``
+    collectives (one halo and one state gather a Mamba2 layer, one K/V
+    gather an attention layer, one row gather and one reduce-scatter a
+    MoE layer)."""
+    specs = [spec for seg in derive_segments(cfg)
+             for _ in range(seg.repeats) for spec in seg.pattern]
+    n = {kind: sum(getattr(s, f) == kind for s in specs)
+         for f, kind in (("mixer", "attn"), ("mixer", "mamba"),
+                         ("ffn", "moe"))}
+    log = {"all-gather seq.halo": n["mamba"],
+           "all-gather seq.state": n["mamba"],
+           "all-gather seq.kv": n["attn"],
+           "all-gather seq.moe": n["moe"],
+           "reduce-scatter seq.moe": n["moe"]}
+    return {"K1": steps * n["attn"], "K2": steps * n["mamba"],
+            "K3": 3 * steps * n["moe"],
+            "offsets": ({str(rank * S // SEQ_GRID[1]): steps * n["attn"]}
+                        if n["attn"] else {}),
+            "log": {k: c for k, c in log.items() if c}}
+
+
+def phase_seq_moe(ranks: list[dict], refs: dict) -> dict[str, int]:
+    """Phase 30: olmoe-1b-7b, then jamba-v0.1-52b, with ``seq_shard`` on
+    a (1,2) grid of two gloo ranks on this card (``seq_moe_full``;
+    ``ranks``, their records; ``refs``, ``seq_moe_references``'),
+    ``batch_axes="dp"``.  At full width olmoe's fp32 forward and jamba's
+    bf16 and fp32 ones (cut to SEQ_JAMBA_LAYERS) judged as phase 25
+    judges a grid (``judge_grid_logits`` at each rank's rows, against
+    ``moe_reference``'s and ``jamba_reference``'s one-process paths),
+    their drops no further from one process's than AGREE_VS_PLAIN_ERR
+    times the plain path's, and in fp32 rank-local routing planted beyond
+    the judge's logit bound; olmoe's bf16 forward printed beside phase
+    10's (a moved route moves others there); K1 once an attention layer
+    at the rank's query offset, K2 once a Mamba2 layer, K3 three times a
+    MoE layer on its E/2 experts at the whole sequence's capacity, and
+    the model group's collectives, exact (``seq_moe_want``); each fp32
+    step's loss and every gradient within STEP_TOL of max|·| of one
+    process's, its drops one process's.  jamba's smoke config: the fp32
+    forward's logits and a step likewise.  Returns the launches."""
+    witness = refs["witness"]
+    olmoe = configs.get(MOE_ARCH)
+    jamba = configs.get(JAMBA_ARCH)
+    smoke = dataclasses.replace(configs.get_smoke(JAMBA_ARCH),
+                                capacity_factor=SEQ_JAMBA_CAPACITY)
+    cut = {MOE_ARCH: dataclasses.replace(olmoe, n_layers=SEQ_MOE_LAYERS),
+           JAMBA_ARCH: dataclasses.replace(jamba, n_layers=SEQ_MOE_LAYERS)}
+    inputs = {MOE_ARCH: (olmoe, MOE_BATCH, MOE_PROMPT),
+              JAMBA_ARCH: (dataclasses.replace(
+                  jamba, n_layers=SEQ_JAMBA_LAYERS), *SEQ_JAMBA_FULL)}
+    bad, launches = [], Counter()
+    print(f"seq_shard {MOE_ARCH}: one process's fp32 kernel path run twice "
+          f"(the witness of how far two runs of one path part): logits "
+          f"{witness['rel_err']:.3e} apart, {witness['parted']} tokens "
+          f"whose routing parts, drops apart by {witness['drops_dev']} at "
+          f"most ({witness['layers']} of {olmoe.n_layers} layers)")
+
+    def kernels_ok(got: dict, c, k: int, S: int, tokens: int,
+                   steps: int = 1) -> bool:
+        want = seq_moe_want(c, k, S, steps)
+        C = moe._capacity(tokens, c)
+        return (got["launches"] == {n: want[n] for n in WRAPPERS}
+                and got["offsets"] == want["offsets"]
+                and got["slots"] == {f"{c.n_experts // SEQ_GRID[1]}x{C}":
+                                     want["K3"]})
+
+    def step_ok(arch: str, k: int, t: dict, c, shape: tuple) -> None:
+        print(f"seq_shard {arch} cut to {c.n_layers} layers 1x2 rank {k} "
+              f"fp32 step B {shape[0]} x S {shape[1]}: loss "
+              f"{t['loss']:.6f} against one process's {t['one_loss']:.6f}; "
+              f"worst gradient {t['grad_err']:.4e} of its max|.| (limit "
+              f"{STEP_TOL}); launches {t['launches']}, K1 by query offset "
+              f"{t['offsets']}, K3 {t['slots']}; dropped per routing "
+              f"{t['drops']} (one process: {t['one_drops']}); finite "
+              f"{t['finite']}; {t['ms']:.1f} ms (one process "
+              f"{t['one_ms']:.1f}); seq collectives {t['log']}; peak "
+              f"{t['peak'] / 2**30:.3f} GiB")
+        if not (t["finite"] and t["grad_err"] <= STEP_TOL
+                and abs(t["loss"] - t["one_loss"])
+                <= STEP_TOL * abs(t["one_loss"])
+                and t["drops"] == t["one_drops"]
+                and kernels_ok(t, c, k, shape[1], math.prod(shape), 2)):
+            bad.append(f"{arch} rank {k} step")
+
+    for k, rk in enumerate(ranks):
+        launches.update(rk["launches"])
+        for arch, (c, B, S) in inputs.items():
+            o = rk[arch]
+            for dtype, f in o["forward"].items():
+                start, rows = f["rows"]
+                print(f"seq_shard {arch} ({c.n_layers} layers) 1x2 rank {k} "
+                      f"{dtype} forward B {B} x S {S}, rows {start}.."
+                      f"{start + rows}: launches {f['launches']}, K1 by "
+                      f"query offset {f['offsets']}, K3 by [experts x "
+                      f"capacity] {f['slots']}; model-group collectives "
+                      f"{f['log']}; dropped per layer {f['drops']} (one "
+                      f"process: {f['one_drops']}); logits against one "
+                      f"process's {f['err']:.4e}, tokens whose routing "
+                      f"parts at some layer {f['parted']}; finite "
+                      f"{f['finite']}; {f['ms']:.1f} ms (two ranks share "
+                      f"the card: not a speed); peak "
+                      f"{f['peak'] / 2**30:.3f} GiB")
+                if not (f["finite"] and kernels_ok(f, c, k, S, B * S)
+                        and f["log"] == seq_moe_want(c, k, S)["log"]):
+                    bad.append(f"{arch} rank {k} forward {dtype}")
+                if "judge" not in f:
+                    continue
+                lg = f["judge"]
+                bound = AGREE_VS_PLAIN_ERR * lg["plain_rel_err"]
+                print(f"seq_shard {arch} rank {k} {dtype} logits against "
+                      f"the one-process kernel path, beside the one-process "
+                      f"plain path (limit {AGREE_VS_PLAIN_ERR}x its): "
+                      f"relative error {lg['rel_err']:.3e} (plain "
+                      f"{lg['plain_rel_err']:.3e}); tokens whose routing "
+                      f"parts at some layer {lg['parted']} of {B * S} "
+                      f"(plain {lg['plain_parted']}); drops apart by "
+                      f"{lg['drops_dev']} at most (plain "
+                      f"{lg['plain_drops_dev']}); layer 0: "
+                      f"{lg['layer0_flips']} top-k flips, largest margin "
+                      f"{lg['layer0_margin']:.3e}")
+                ok = lg["ok"] and (lg["drops_dev"] <= AGREE_VS_PLAIN_ERR
+                                   * lg["plain_drops_dev"])
+                if "fault" in f:
+                    print(f"seq_shard {arch} rank {k} planted fault "
+                          f"(rank-local routing, capacity "
+                          f"{moe._capacity(B * rows, c)} for the rank's "
+                          f"{B * rows} tokens against "
+                          f"{moe._capacity(B * S, c)}): {f['fault']:.4e} "
+                          f"(limit {bound:.4e})")
+                    ok = ok and f["fault"] > bound
+                if not ok:
+                    bad.append(f"{arch} rank {k} {dtype} judge or fault")
+            step_ok(arch, k, o["train"], cut[arch], (SEQ_MOE_TRAIN
+                                                     if arch == MOE_ARCH
+                                                     else SEQ_JAMBA_FULL))
+        j = rk[JAMBA_ARCH]
+        f = j["smoke_forward"]
+        print(f"seq_shard {JAMBA_ARCH} smoke (capacity factor "
+              f"{SEQ_JAMBA_CAPACITY}) 1x2 rank {k} fp32 forward B "
+              f"{SEQ_JAMBA_INPUT[0]} x S {SEQ_JAMBA_INPUT[1]}, rows "
+              f"{f['rows'][0]}..{sum(f['rows'])}: logits against one "
+              f"process's {f['err']:.4e} of max|.| (limit {STEP_TOL}); "
+              f"launches {f['launches']}, K1 by query offset "
+              f"{f['offsets']}, K3 {f['slots']}; dropped per layer "
+              f"{f['drops']} (one process: {f['one_drops']})")
+        if not (f["err"] <= STEP_TOL and f["drops"] == f["one_drops"]
+                and kernels_ok(f, smoke, k, SEQ_JAMBA_INPUT[1],
+                               math.prod(SEQ_JAMBA_INPUT))):
+            bad.append(f"{JAMBA_ARCH} smoke rank {k} forward")
+        step_ok(f"{JAMBA_ARCH} smoke", k, j["smoke_train"], smoke,
+                SEQ_JAMBA_INPUT)
+    for arch in (MOE_ARCH, JAMBA_ARCH):
+        if ranks[1][arch]["train"]["loss"] != ranks[0][arch]["train"]["loss"]:
+            bad.append(f"{arch}: the ranks' losses differ")
+    if bad:
+        raise AssertionError(f"phase 30 failed: {bad}")
+    print(f"seq_shard MoE: one-process references {refs['olmoe_s']:.1f} s "
+          f"(olmoe), {refs['jamba_s']:.1f} s (jamba); phase 30 took "
+          f"{ranks_seconds(ranks):.1f} s on its ranks")
+    return dict(launches)
+
+
+def seq_moe_references(out: str) -> dict:
+    """Phase 30's one-process references, saved to ``out`` before its
+    ranks start: ``moe_reference`` of phase 10's prompts (the witness
+    too) and ``jamba_reference``; their seconds and the witness."""
+    tokens = torch.load(f"{out}/{PHASE10_FILE}")["prompts"].cuda()
+    olmoe_s, witness = moe_reference({"tokens": tokens},
+                                     f"{out}/{SEQ_MOE_REF}", again=True)
+    del tokens
+    return {"olmoe_s": olmoe_s, "witness": witness,
+            "jamba_s": jamba_reference(f"{out}/{SEQ_JAMBA_REF}")}
+
+
+def ranks_seconds(ranks: list[dict]) -> float:
+    """The longest of the ranks' seconds on one phase of ``seq_phases``."""
+    return max(rk["seconds"] for rk in ranks)
+
+
+def seq_phases(grid, rank: int, out: str) -> dict:
+    """A rank of phases 27-30, one process for the four: ``seq_full``,
+    ``seq_attn_full``, ``seq_enc_full`` and ``seq_moe_full`` in turn,
+    each record with its seconds on this rank."""
+    res = {}
+    for name, run in (("seq", lambda: seq_full(grid, rank)),
+                      ("seq_attn", lambda: seq_attn_full(grid, rank, out)),
+                      ("seq_enc", lambda: seq_enc_full(grid, rank)),
+                      ("seq_moe", lambda: seq_moe_full(grid, rank, out))):
+        print(f"rank {rank} before {name}: {torch.cuda.memory_allocated()} "
+              f"B allocated, {torch.cuda.memory_reserved()} B reserved",
+              flush=True)
+        t0 = time.perf_counter()
+        res[name] = dict(run(), seconds=time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_seq_grid(out: str) -> dict[str, int]:
+    """Phases 27-30: ``seq_shard`` on a (1,2) grid of two gloo ranks on
+    this card, one start of the ranks for the four (``seq_phases``),
+    after phase 30's one-process references; each phase then judges its
+    ranks' records.  Returns the launches."""
+    t0 = time.perf_counter()
+    refs = seq_moe_references(out)
+    # the ranks hold whole models: leave them the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"seq_shard: this process holds {torch.cuda.memory_reserved()} B "
+          f"of the card before the ranks start")
+    # four phases in turn on one start of the ranks
+    ranks = finish_grid(start_grid(SEQ_GRID, out, "seq"), out,
+                        2 * GRID_TIMEOUT)
+
+    def of(mode: str) -> list[dict]:
+        return [rk[mode] for rk in ranks]
+
+    launches = Counter(phase_seq(of("seq")))
+    launches.update(phase_seq_attn(out, of("seq_attn")))
+    launches.update(phase_seq_enc(of("seq_enc")))
+    launches.update(phase_seq_moe(of("seq_moe"), refs))
+    print(f"seq_shard: phases 27-30 took {time.perf_counter() - t0:.1f} s, "
+          f"one start of their ranks")
     return dict(launches)
 
 
@@ -4029,7 +4611,8 @@ def main(run_dir: str) -> int:
     launches.update(timed("7 mamba2-130m", phase_serve_ssm))
     k3 = timed("8 K3", phase_k3)
     timed("9-11 olmoe-1b-7b", phase_small, MOE_ARCH)
-    moe_launches, run = timed("9-11 olmoe-1b-7b", phase_serve_moe)
+    moe_launches, run = timed("9-11 olmoe-1b-7b", phase_serve_moe,
+                              run_dir)
     launches.update(moe_launches)
     timed("9-11 olmoe-1b-7b", phase_moe_layer, run)
     del run
@@ -4052,11 +4635,7 @@ def main(run_dir: str) -> int:
     timed("24 estimate", phase_estimate, peaks, fsdp_peak, card)
     launches.update(timed("25 grid", phase_grid))
     launches.update(timed("26 grid decode", phase_grid_decode, run_dir))
-    launches.update(timed("27 seq_shard", phase_seq, run_dir))
-    launches.update(timed("28 seq_shard attention", phase_seq_attn,
-                          run_dir))
-    launches.update(timed("29 seq_shard prefix, encoder", phase_seq_enc,
-                          run_dir))
+    launches.update(timed("27-30 seq_shard", phase_seq_grid, run_dir))
     kernels = dict(zip(WRAPPERS, (k1, k2, k3)))
     for name, kern in kernels.items():
         kern["launches"] = launches[name]
@@ -4091,8 +4670,7 @@ if __name__ == "__main__":
         p.add_argument("--grid-init", required=True)
         p.add_argument("--grid-dir", required=True)
         p.add_argument("--grid-mode", default="grid",
-                       choices=("grid", "decode", "seq", "seq_attn",
-                                "seq_enc"))
+                       choices=("grid", "decode", "seq"))
         a = p.parse_args()
         grid_worker(a.grid_rank, mesh_lib.parse(a.grid), a.grid_init,
                     a.grid_dir, a.grid_mode)

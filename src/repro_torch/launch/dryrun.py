@@ -54,7 +54,8 @@ the caller names ``seq_shard`` (``--set seq_shard=True``), as JAX's
 ``lower_cell`` honours an explicit override: the rank then takes its
 rows of the batch over the data axes and its piece of the sequence
 (``sync.seq``; the archs of ``models.model.seq_shardable``), and its
-halo, state, K/V and loss collectives are counted on the model group.
+halo, state, K/V, MoE row and loss collectives are counted on the model
+group.
 A decode cell runs unsplit there, as JAX's does (``seq_split``).
 
 Usage:

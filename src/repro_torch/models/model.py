@@ -16,9 +16,9 @@ Built on a grid of ranks (``Model(..., grid=)``, ``launch.mesh``), a rank
 holds its slices of what the JAX package's sharding rule splits
 (``launch.sharding``) and runs tensor and expert parallelism over the
 grid's model group (``sync.model_axis``), as JAX's model runs on a mesh;
-under ``RunConfig.seq_shard`` a stack of Mamba2 blocks, or a dense
-decoder of GQA attention blocks (``seq_shardable``), splits its sequence
-over that group instead (``sync.seq``).
+under ``RunConfig.seq_shard`` a stack of Mamba2, GQA attention and MoE
+blocks (``seq_shardable``) splits its sequence over that group instead
+(``sync.seq``).
 Its decode cache is its block of JAX's ``cache_shardings``
 (``launch.sharding.CacheBlock``): its batch rows and, where the rule
 splits it, its rows of the cache's T, every head of them; attention
@@ -130,25 +130,24 @@ BATCH_AXES = ("dp", "all")
 
 
 def seq_shardable(cfg: ArchConfig) -> bool:
-    """Whether ``RunConfig.seq_shard`` is ported for ``cfg``: no MTP head,
-    and either every block a Mamba2 block without an encoder or a vision
-    prefix (mamba2-130m; its smoke config adds a dense FFN, pointwise as
-    the block's projections) or a decoder of GQA/MHA attention blocks with
-    dense FFNs (``family`` "dense": deepseek-7b, chatglm3-6b,
-    nemotron-4-15b, deepseek-coder-33b; "vlm", whose vision prefix the
-    split counts: internvl2-2b; "audio", whose encoder runs whole on every
-    rank and whose blocks cross-attend from a rank's rows:
-    whisper-large-v3).  MoE and MLA are not ported."""
-    if cfg.mtp:
+    """Whether ``RunConfig.seq_shard`` is ported for ``cfg``: no MTP head
+    and no MLA, every block a Mamba2 block or a GQA/MHA attention block,
+    each with a dense FFN, a MoE FFN or none.  That takes mamba2-130m (its
+    smoke config adds a dense FFN, pointwise as the block's projections),
+    the dense decoders (deepseek-7b, chatglm3-6b, nemotron-4-15b,
+    deepseek-coder-33b), internvl2-2b, whose vision prefix the split
+    counts, whisper-large-v3, whose encoder runs whole on every rank and
+    whose blocks cross-attend from a rank's rows, olmoe-1b-7b (attention
+    and MoE: a MoE block routes the whole sequence gathered over the
+    group, ``models.moe``) and jamba-v0.1-52b (Mamba2, attention and MoE
+    blocks in one stack).  A stack with Mamba2 blocks takes no encoder
+    and no vision prefix.  deepseek-v3-671b (MLA, the MTP head) is not
+    ported."""
+    if cfg.mtp or cfg.attn_type == "mla":
         return False
-    specs = [spec for seg in derive_segments(cfg) for spec in seg.pattern]
-    if all(spec.mixer == "mamba" and spec.ffn in ("none", "dense")
-           for spec in specs):
-        return not (cfg.encoder_layers or cfg.vision_embed_dim)
-    return (cfg.family in ("dense", "vlm", "audio")
-            and cfg.attn_type != "mla"
-            and all(spec.mixer == "attn" and spec.ffn == "dense"
-                    for spec in specs))
+    mamba = any(spec.mixer == "mamba" for seg in derive_segments(cfg)
+                for spec in seg.pattern)
+    return not (mamba and (cfg.encoder_layers or cfg.vision_embed_dim))
 
 
 def seq_length(cfg: ArchConfig, batch: dict) -> int:
@@ -188,9 +187,9 @@ def _check_run(run: RunConfig, grid=None,
             f"RunConfig fields {unread} need the JAX package's \"model\" "
             f"mesh axis: batch_axes and moe_combine are read on a grid of "
             f"ranks (Model(..., grid=launch.mesh.make_grid(...))); "
-            f"seq_shard is ported only for stacks of Mamba2 blocks and "
-            f"GQA decoders with dense FFNs (a vision prefix or an encoder "
-            f"allowed)")
+            f"seq_shard is ported for stacks of Mamba2 and GQA attention "
+            f"blocks with dense or MoE FFNs (a vision prefix or an "
+            f"encoder allowed), not for MLA or the MTP head")
 
 
 def _leaves(tree: dict) -> list:
@@ -367,8 +366,11 @@ class _Block(nn.Module):
             self.tp_mlp = on("mlp", {name: -2 if name == "w_out" else -1
                                      for name in self.mlp})
         if hasattr(self, "moe"):
+            # under seq_shard a rank runs its experts on the gathered
+            # sequence (``moe._split_apply``), the shared expert whole
             self.ep = on("moe", {"w_in": -3, "w_gate": -3, "w_out": -3})
-            self.tp_shared = "shared_in" in self.moe and on(
+            self.tp_shared = not layout.run.seq_shard and \
+                "shared_in" in self.moe and on(
                 "moe", {"shared_in": -1, "shared_gate": -1,
                         "shared_out": -2})
         runs = {"attn": self.tp_attn, "xattn": self.tp_xattn,
@@ -593,6 +595,10 @@ class Model(nn.Module):
                         for name, ax in m.at_use.items()}
         self._at_use.update({id(params[n]): ax
                              for n, ax in self._top_at_use.items()})
+        # every tensor split over the model group: gathered at use, or run
+        # on its slice (a rank's experts)
+        self._model_split = {id(params[n]) for n, place in placed.items()
+                             if place.model is not None}
 
     @property
     def device(self) -> torch.device:
@@ -733,7 +739,8 @@ class Model(nn.Module):
                                    tp=tp if split else None,
                                    combine=run.moe_combine,
                                    ep=split and block.ep,
-                                   shared_tp=split and block.tp_shared)
+                                   shared_tp=split and block.tp_shared,
+                                   seq=seq)
             x = x + y
         return x, aux
 
@@ -753,7 +760,8 @@ class Model(nn.Module):
         whole on every rank of a model group that splits parameters
         enters through ``tp.enter``, whose backward sums it over the
         group (under ``batch_axes="all"`` the data sync spans the grid's
-        world, which sums them)."""
+        world, which sums them); a rank's experts take their whole
+        gradient on their rank."""
         stacks = [t for tree in trees for t in _leaves(tree)]
         whole = [t for t in stacks if id(t) in self._sharded_ids]
         rest = [t for t in stacks if id(t) not in self._sharded_ids]
@@ -773,7 +781,7 @@ class Model(nn.Module):
                 [self._at_use[id(t)] for t in at_use], mean=seq is None)))
         if seq is not None and self.tp is not None:
             for t in stacks:
-                if id(t) not in self._at_use:
+                if id(t) not in self._model_split:
                     got[id(t)] = self.tp.enter(got[id(t)], key)
         rows = iter([got[id(t)] for t in stacks])
         return [_rebuild(tree, rows) for tree in trees]

@@ -5,7 +5,11 @@ One process runs the single-device path of the JAX package's
 ``moe_apply`` (``mesh=None``: one expert shard, no cross-shard combine);
 on a grid of ranks (``launch.mesh``) each rank of the model group runs
 its ``shard_map`` body: its own experts, then the combine over the
-group (``moe_apply``).  Each expert
+group (``moe_apply``).  On a sequence split over the model group
+(``RunConfig.seq_shard``, ``sync.seq``) the ranks' rows are gathered
+first, as JAX's ``shard_map`` takes the sequence whole: every rank routes
+the whole sequence as one call, runs its own experts on it, and keeps its
+rows of the sum.  Each expert
 takes at most ``_capacity(T)`` of the T tokens in a call; assignments past
 that are dropped, in the order of a stable sort by expert id (so by token
 within an expert), as there.  Parameters keep the JAX names and layouts;
@@ -160,13 +164,36 @@ def route(x2: torch.Tensor, router: torch.Tensor, cfg: ArchConfig) -> Routing:
     return r
 
 
+def _experts(x2: torch.Tensor, tok: torch.Tensor, gate: torch.Tensor,
+             w_gate: torch.Tensor, w_in: torch.Tensor,
+             w_out: torch.Tensor) -> torch.Tensor:
+    """The experts of the banks ``w_*`` [n, ...] on their slots ``tok``
+    and ``gate`` [n, C] of the tokens ``x2`` [T, d]: the gated outputs
+    summed into [T, d] (``index_add_``), in the banks' dtype.  The FFN
+    runs through ``ops.grouped_matmul`` (K3 on the card): three products,
+    ``silu(x@w_gate) * (x@w_in)`` then ``@ w_out``."""
+    xe = x2[tok]                                                # [n,C,d]
+    h = F.silu(ops.grouped_matmul(xe, w_gate)) \
+        * ops.grouped_matmul(xe, w_in)
+    ye = ops.grouped_matmul(h, w_out)                           # [n,C,d]
+    ye = ye * gate[..., None].to(ye.dtype)
+    y = torch.zeros(x2.shape, dtype=ye.dtype, device=x2.device)
+    return y.index_add_(0, tok.reshape(-1), ye.reshape(-1, x2.shape[1]))
+
+
+def _shared(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert on ``x`` (its columns where ``p`` holds them)."""
+    return (F.silu(x @ p["shared_gate"]) * (x @ p["shared_in"])) \
+        @ p["shared_out"]
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *, tp=None,
               combine: str = "psum", ep: bool = False,
-              shared_tp: bool = False):
+              shared_tp: bool = False, seq=None):
     """x: [B,S,d] → (y [B,S,d] in x's dtype, aux loss, a 0-d fp32 tensor).
 
-    The expert FFN runs through ``ops.grouped_matmul`` (K3 on the card):
-    three products, ``silu(x@w_gate) * (x@w_in)`` then ``@ w_out``.
+    The expert FFN runs through ``ops.grouped_matmul`` (K3 on the card,
+    ``_experts``).
 
     On a grid's model group ``tp`` (``sync.model_axis.Tp``), as JAX's
     ``shard_map`` body: with ``ep`` each rank holds experts ``rank·E/ep …
@@ -174,7 +201,14 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *, tp=None,
     its data shard's tokens (the same routing and aux loss on every rank)
     and dispatches to its own experts only; with ``shared_tp`` the shared
     expert runs on its columns.  Those parts are summed over the group by
-    ``tp.combine`` (``combine``: ``"psum"`` or ``"psum_scatter"``)."""
+    ``tp.combine`` (``combine``: ``"psum"`` or ``"psum_scatter"``).
+
+    On a sequence split over the model group (``seq``, a
+    ``sync.seq.Seq``; x holds this rank's rows) see ``_split_apply``:
+    ``ep`` says whether ``p``'s banks are the rank's slice; ``tp``,
+    ``combine`` and ``shared_tp`` are not read."""
+    if seq is not None:
+        return _split_apply(p, x, cfg, seq, ep)
     B, S, d = x.shape
     x2 = x.reshape(-1, d)
     r = route(x2, p["router"], cfg)
@@ -188,21 +222,14 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *, tp=None,
         tok = tok[lo:lo + n]
         gate = tp.enter(gate, "moe.gate")[lo:lo + n]
 
-    xe = (x_in if ep else x2)[tok]                              # [E,C,d]
-    h = F.silu(ops.grouped_matmul(xe, p["w_gate"])) \
-        * ops.grouped_matmul(xe, p["w_in"])
-    ye = ops.grouped_matmul(h, p["w_out"])                      # [E,C,d]
-    ye = ye * gate[..., None].to(ye.dtype)
-    y = torch.zeros((x2.shape[0], d), dtype=ye.dtype, device=x.device)
-    y.index_add_(0, tok.reshape(-1), ye.reshape(-1, d))
+    y = _experts(x_in if ep else x2, tok, gate, p["w_gate"], p["w_in"],
+                 p["w_out"])
 
     # the terms of y: each rank's part of the group's sum, or whole
     terms = {True: [], False: []}
     terms[ep].append(y)
     if "shared_in" in p:
-        xs = x_in if shared_tp else x2
-        hs = F.silu(xs @ p["shared_gate"]) * (xs @ p["shared_in"])
-        terms[shared_tp].append(hs @ p["shared_out"])
+        terms[shared_tp].append(_shared(p, x_in if shared_tp else x2))
     parts, whole = (functools.reduce(operator.add, terms[k])
                     if terms[k] else None for k in (True, False))
     if parts is not None:
@@ -211,3 +238,36 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *, tp=None,
     else:
         y = whole
     return y.reshape(B, S, d), r.aux
+
+
+def _split_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, seq,
+                 ep: bool):
+    """``moe_apply`` on this rank's rows x [B, rows, d] of a sequence
+    split over the model group ``seq.comm`` of m ranks, as JAX's
+    ``shard_map`` body runs under ``seq_shard``: the rows are gathered
+    (``seq.gather_rows``) and the whole [B·L, d] routed as one call, so
+    that the capacity, the stable order by token (b-major) and the aux
+    loss are one process's on every rank.  Rank k runs experts ``k·E/m …
+    (k+1)·E/m`` on their slots (``ep``: the banks are that slice, else
+    whole and sliced here), and its partial [B, L, d]
+    leaves through ``seq.scatter_rows``: the group's sum at its rows.
+    Each rank's gradients are its part: its experts' slots (the router's
+    through their gates) and 1/m of the aux loss (``seq.once``); the
+    group's sum of them is one process's.  The shared expert runs whole
+    on the rank's rows."""
+    B, rows, d = x.shape
+    m, E = seq.comm.world, cfg.n_experts
+    if E % m:
+        raise ValueError(f"seq_shard: {E} experts do not split over {m} "
+                         f"model ranks")
+    n = E // m
+    lo = seq.comm.rank * n
+    x2 = seq.gather_rows(x, "seq.moe").reshape(-1, d)
+    r = route(x2, p["router"], cfg)
+    banks = [w if ep else w[lo:lo + n]
+             for w in (p["w_gate"], p["w_in"], p["w_out"])]
+    y = _experts(x2, r.tok[lo:lo + n], r.gate[lo:lo + n], *banks)
+    y = seq.scatter_rows(y.reshape(B, -1, d), "seq.moe")
+    if "shared_in" in p:
+        y = y + _shared(p, x)
+    return y, seq.once(r.aux)

@@ -26,6 +26,17 @@ start + rows)``, over which K1 runs with the query offset ``start``; the
 backward reduce-scatters the gathered rows' gradients to their owners
 (one reduce-scatter).
 
+A MoE block routes the whole sequence as one call, as JAX's
+``moe_apply`` enters its ``shard_map`` with the sequence whole:
+``gather_rows`` all-gathers every rank's rows of its normed input (one
+all-gather; the backward reduce-scatters the gradient to the rows'
+owners), and each rank runs its own experts over the whole sequence;
+``scatter_rows`` sums the ranks' partial outputs over the group and keeps
+this rank's rows, JAX's psum and the reshard to the rows in one
+reduce-scatter (the backward all-gathers).  The router's aux loss is the
+same whole-sequence value on every rank: ``once`` passes 1/m of its
+gradient to each rank, so that the group's sum counts it once.
+
 ``total`` sums each rank's part of the loss over the group forward and
 passes the gradient through to every part backward, so that each rank's
 parameter gradients are its rows' part of the whole.
@@ -110,26 +121,51 @@ class _Prefix(torch.autograd.Function):
                 mine[n:].view(ctx.shapes[1]))
 
 
-class _Keys(torch.autograd.Function):
+class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, comm: shard.Comm, k: torch.Tensor, v: torch.Tensor):
-        ctx.comm, ctx.split = comm, k.shape[-1]
-        both = torch.cat([k, v], dim=-1)
-        whole = shard.gather(comm, both.contiguous()[None], 0)
-        comm.note("all-gather", "seq.kv")
-        whole = torch.cat(whole.unbind(0), dim=1)       # [B, m·rows, ...]
-        return (whole[..., :ctx.split].contiguous(),
-                whole[..., ctx.split:].contiguous())
+    def forward(ctx, comm: shard.Comm, key: str, x: torch.Tensor):
+        ctx.comm, ctx.key = comm, key
+        whole = shard.gather(comm, x.contiguous()[None], 0)
+        comm.note("all-gather", key)
+        return torch.cat(whole.unbind(0), dim=1)        # [B, m·rows, ...]
 
     @staticmethod
-    def backward(ctx, gk, gv):
+    def backward(ctx, g):
         comm = ctx.comm
-        g = torch.cat([gk, gv], dim=-1)                  # [B, m·rows, ...]
         send = torch.stack(g.chunk(comm.world, dim=1))   # [m, B, rows, ...]
         mine = send.new_empty(send[0].shape)
         comm.reduce_scatter(mine.view(-1), send.reshape(-1)).wait()
-        comm.note("reduce-scatter", "seq.kv")
-        return None, mine[..., :ctx.split], mine[..., ctx.split:]
+        comm.note("reduce-scatter", ctx.key)
+        return None, None, mine
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm: shard.Comm, key: str, y: torch.Tensor):
+        ctx.comm, ctx.key = comm, key
+        send = torch.stack(y.chunk(comm.world, dim=1))   # [m, B, rows, ...]
+        mine = send.new_empty(send[0].shape)
+        comm.reduce_scatter(mine.view(-1), send.reshape(-1)).wait()
+        comm.note("reduce-scatter", key)
+        return mine
+
+    @staticmethod
+    def backward(ctx, g):
+        comm = ctx.comm
+        whole = shard.gather(comm, g.contiguous()[None], 0)
+        comm.note("all-gather", ctx.key)
+        return None, None, torch.cat(whole.unbind(0), dim=1)
+
+
+class _Once(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, world: int, t: torch.Tensor):
+        ctx.world = world
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g / ctx.world
 
 
 class _Total(torch.autograd.Function):
@@ -181,11 +217,34 @@ class Seq:
 
     def keys(self, k: torch.Tensor, v: torch.Tensor) -> tuple:
         """The k and v [B, rows, K, ·] of every rank's rows up to this
-        rank's last, ``[0, start + rows)``, gathered over the group; their
-        gradients return to the rows' owners."""
-        k, v = _Keys.apply(self.comm, k, v)
-        end = self.start + self.rows
-        return k[:, :end], v[:, :end]
+        rank's last, ``[0, start + rows)``, gathered over the group (one
+        all-gather of both); their gradients return to the rows'
+        owners."""
+        split = k.shape[-1]
+        both = self.gather_rows(torch.cat([k, v], dim=-1), "seq.kv")
+        both = both[:, :self.start + self.rows]
+        return (both[..., :split].contiguous(),
+                both[..., split:].contiguous())
+
+    def gather_rows(self, x: torch.Tensor, key: str) -> torch.Tensor:
+        """Every rank's rows of ``x`` [B, rows, ...] in rank order, [B, L,
+        ...]; the backward reduce-scatters the gradient, summed over the
+        group, to each rank's rows.  ``key`` names it on the log."""
+        return _GatherRows.apply(self.comm, key, x)
+
+    def scatter_rows(self, y: torch.Tensor, key: str) -> torch.Tensor:
+        """This rank's rows of the sum over the group of each rank's
+        partial ``y`` [B, L, ...]; the backward all-gathers the rows'
+        gradients (every rank's partial reaches every row).  ``key``
+        names it on the log."""
+        return _ScatterRows.apply(self.comm, key, y)
+
+    def once(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, a value every rank of the group computes whole from the
+        whole sequence: each rank's backward takes 1/m of its gradient, so
+        that the group's sum of the parameters' gradients counts it
+        once."""
+        return _Once.apply(self.comm.world, t)
 
     def total(self, part: torch.Tensor) -> torch.Tensor:
         """The sum over the group of each rank's ``part`` (0-d); its

@@ -618,8 +618,8 @@ def test_fields_that_need_a_model_axis_still_raise(field, value):
     """``fsdp`` builds (one process: the whole model, nothing sharded);
     the three fields that place work on JAX's "model" axis raise, naming
     themselves (``seq_shard`` for an arch it is not ported for,
-    olmoe-1b-7b)."""
-    cfg = tconfigs.get_smoke("olmoe-1b-7b" if field == "seq_shard"
+    deepseek-v3-671b)."""
+    cfg = tconfigs.get_smoke("deepseek-v3-671b" if field == "seq_shard"
                              else "deepseek-7b")
     model = TModel(cfg, TRunConfig(fsdp=True), device="cpu")
     assert model.run.fsdp and not model.shards

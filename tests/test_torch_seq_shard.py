@@ -420,26 +420,30 @@ def test_seq_shard_without_a_grid_is_one_process():
     assert torch.equal(*losses)
 
 
-# the GQA decoders ported since (``models.model.seq_shardable``; their
-# split steps: ``tests/test_torch_seq_attention.py``, and for the vision
-# prefix and the encoder ``tests/test_torch_seq_encoder.py``)
-DENSE = ("deepseek-7b", "chatglm3-6b", "nemotron-4-15b",
-         "deepseek-coder-33b", "internvl2-2b", "whisper-large-v3")
+# the archs ported since (``models.model.seq_shardable``; their split
+# steps: ``tests/test_torch_seq_attention.py``, for the vision prefix and
+# the encoder ``tests/test_torch_seq_encoder.py``, for the MoE stacks
+# ``tests/test_torch_seq_moe.py``)
+PORTED = ("deepseek-7b", "chatglm3-6b", "nemotron-4-15b",
+          "deepseek-coder-33b", "internvl2-2b", "whisper-large-v3",
+          "olmoe-1b-7b", "jamba-v0.1-52b")
 
 
 @pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
                                   if a != ARCH])
 def test_other_archs_still_refuse_seq_shard(arch):
-    """An arch with MoE or MLA raises on a grid and without one, naming
-    ``seq_shard`` and the "model" axis.  A GQA decoder with dense FFNs
-    builds with it: on a (1,2) grid it splits a length the group divides,
-    rows k·L/2 on, L the batch's ``seq_length`` (internvl2-2b's 8 prefix
-    rows and 16 tokens, the others' 16 tokens; whisper-large-v3's frames
-    are its encoder's), and without a grid it splits nothing, its loss
-    the plain model's bit for bit."""
+    """An arch with MLA and the MTP head (deepseek-v3-671b) raises on a
+    grid and without one, naming ``seq_shard`` and the "model" axis.
+    Every other arch builds with it (GQA decoders, with dense or MoE
+    FFNs, and jamba's Mamba2, attention and MoE stack): on a (1,2) grid it
+    splits a length the group divides, rows k·L/2 on, L the batch's
+    ``seq_length`` (internvl2-2b's 8 prefix rows and 16 tokens, the
+    others' 16 tokens; whisper-large-v3's frames are its encoder's;
+    jamba's 8 rows a rank are its chunk), and without a grid it splits
+    nothing, its loss the plain model's bit for bit."""
     cfg = tconfigs.get_smoke(arch)
     run = TRunConfig(seq_shard=True)
-    if arch in DENSE:
+    if arch in PORTED:
         g = torch.Generator().manual_seed(0)
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
                                          generator=g)}

@@ -482,7 +482,8 @@ def test_bf16_steps_at_the_cli_lr_follow_jax_and_lower_the_held_out_loss(
 def test_check_run_still_refuses(field, value, item):
     """Item 5's ``sync_mode`` is ported: ``bucketed`` builds, an unknown
     mode raises, and the fields that need a "model" mesh axis
-    (``seq_shard`` here, for an arch it is not ported for: olmoe-1b-7b;
+    (``seq_shard`` here, for an arch it is not ported for:
+    deepseek-v3-671b;
     ``fsdp`` is ported) still raise, naming themselves and not item 5;
     item 4's (the optimizer extras) are ported: the model builds and the
     train state carries them (int8 moments, the error accumulator)."""
@@ -494,7 +495,7 @@ def test_check_run_still_refuses(field, value, item):
             TModel(tconfigs.get_smoke("deepseek-7b"),
                    TRunConfig(sync_mode="ring"), device="cpu")
         with pytest.raises(NotImplementedError, match="seq_shard") as err:
-            TModel(tconfigs.get_smoke("olmoe-1b-7b"),
+            TModel(tconfigs.get_smoke("deepseek-v3-671b"),
                    dataclasses.replace(run, seq_shard=True), device="cpu")
         assert "item 5" not in str(err.value)
         return
